@@ -1,11 +1,11 @@
 """ALF tests: classification properties, filter behavior, e2e oracle."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.alf import (_tap_features, _vb_row_offsets,
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.alf import (_tap_features, _vb_row_offsets,
                                     classify_frame, filter_plane)
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _src(w, h, seed=17, noise=14):
@@ -148,7 +148,7 @@ def test_cc_alf_inter():
 def test_nonlinear_clip_search_picks_clipping():
     """On clean edges + noise, clipped features protect the edges and the
     search must select a nonzero clip index."""
-    from uvg266_tpu.control.alf import alf_search_frame
+    from uvg266_jax.control.alf import alf_search_frame
 
     class _Ctrl:
         width_in_lcu = 3
@@ -172,9 +172,9 @@ def test_nonlinear_clip_search_picks_clipping():
 
 
 def test_nonlinear_clip_aps_roundtrip():
-    from uvg266_tpu.bitstream.bitwriter import Bitstream, BitstreamReader
-    from uvg266_tpu.control.alf import AlfFrameParams
-    from uvg266_tpu.hls.alf_syntax import parse_alf_aps, write_alf_aps
+    from uvg266_jax.bitstream.bitwriter import Bitstream, BitstreamReader
+    from uvg266_jax.control.alf import AlfFrameParams
+    from uvg266_jax.hls.alf_syntax import parse_alf_aps, write_alf_aps
     p = AlfFrameParams()
     p.luma_enabled = True
     p.num_filters = 2

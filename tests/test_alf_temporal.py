@@ -8,10 +8,10 @@ reproduce the recon exactly.
 """
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes, RefLists
-from uvg266_tpu.consts import NalType
-from uvg266_tpu.oracle.decoder import decode_au, split_nals
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes, RefLists
+from uvg266_jax.consts import NalType
+from uvg266_jax.oracle.decoder import decode_au, split_nals
 
 
 def _clip(w, h, n, seed=11):
@@ -103,7 +103,7 @@ def test_temporal_aps_rate_win():
     bits_pool = sum(len(au) * 8 for (au, *_r) in results)
 
     # disable the pool: force every frame to design a fresh APS
-    import uvg266_tpu.control.alf as alf_mod
+    import uvg266_jax.control.alf as alf_mod
     orig = alf_mod.alf_search_frame
 
     def no_pool(src, rec, ctrl, lam, bitdepth=8, aps_pool=None):

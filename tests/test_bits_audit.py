@@ -4,8 +4,8 @@ encode path reports per-frame model-estimated coefficient bits, and the
 estimate must track the real CABAC AU size within a sane band."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
 
 
 def _clip(w, h, n, seed=5):

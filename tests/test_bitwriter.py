@@ -1,6 +1,6 @@
 import pytest
 
-from uvg266_tpu.bitstream.bitwriter import (
+from uvg266_jax.bitstream.bitwriter import (
     Bitstream,
     BitstreamReader,
     strip_emulation_prevention,

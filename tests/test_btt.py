@@ -1,11 +1,11 @@
 """BT partition search: DP decisions produce decodable MTT streams."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.cu import BT_HOR_SPLIT, BT_VER_SPLIT
-from uvg266_tpu.control.encoder import FramePlanes, SliceEncoder
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.cu import BT_HOR_SPLIT, BT_VER_SPLIT
+from uvg266_jax.control.encoder import FramePlanes, SliceEncoder
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _src(w, h, seed=31):
@@ -30,7 +30,7 @@ def test_btt_intra_roundtrip_and_bt_used():
 
 
 def test_btt_inter_roundtrip():
-    from uvg266_tpu.control.encoder import Encoder
+    from uvg266_jax.control.encoder import Encoder
     cfg = Config(width=192, height=128, qp=32, max_btt_depth=(1, 1, 1))
     enc = Encoder(cfg)
     rng = np.random.default_rng(9)
@@ -46,7 +46,7 @@ def test_btt_inter_roundtrip():
 
 def test_btt_rect_leaves_decodable():
     """Force BT aggressively (tiny BT penalty) to exercise rect leaves."""
-    import uvg266_tpu.control.partition as P
+    import uvg266_jax.control.partition as P
     old = P.BT_BITS_EST
     P.BT_BITS_EST = -20.0        # bias the DP toward BT splits
     try:
@@ -65,8 +65,8 @@ def test_btt_rect_leaves_decodable():
 
 def test_tt_forced_roundtrip():
     """Force TT (negative TT penalty) and confirm TT leaves decode."""
-    import uvg266_tpu.control.partition as P
-    from uvg266_tpu.control.cu import TT_HOR_SPLIT, TT_VER_SPLIT
+    import uvg266_jax.control.partition as P
+    from uvg266_jax.control.cu import TT_HOR_SPLIT, TT_VER_SPLIT
     old = P.TT_BITS_EST
     P.TT_BITS_EST = -50.0
     try:
@@ -84,8 +84,8 @@ def test_tt_forced_roundtrip():
 
 def test_tt_chosen_by_dp():
     """The DP actually picks TT splits when they win (spy on _decide)."""
-    import uvg266_tpu.control.partition as P
-    from uvg266_tpu.control.cu import TT_HOR_SPLIT, TT_VER_SPLIT
+    import uvg266_jax.control.partition as P
+    from uvg266_jax.control.cu import TT_HOR_SPLIT, TT_VER_SPLIT
     cfg = Config(width=128, height=96, qp=30, intra_period=1, gop_len=0,
                  max_btt_depth=(1, 1, 1))
     enc = SliceEncoder(cfg, EncoderControl(cfg))

@@ -2,9 +2,9 @@ import random
 
 import pytest
 
-from uvg266_tpu.bitstream.bitwriter import Bitstream, BitstreamReader
-from uvg266_tpu.bitstream.cabac import Cabac, CabacDecoder, NUM_CTX
-from uvg266_tpu.bitstream.ctx_tables import ENTROPY_BITS
+from uvg266_jax.bitstream.bitwriter import Bitstream, BitstreamReader
+from uvg266_jax.bitstream.cabac import Cabac, CabacDecoder, NUM_CTX
+from uvg266_jax.bitstream.ctx_tables import ENTROPY_BITS
 
 
 def test_entropy_bits_reference_samples():
@@ -204,7 +204,7 @@ def test_trm_zero_bins():
 
 
 def test_init_state_qp_dependence():
-    from uvg266_tpu.bitstream.cabac import init_contexts
+    from uvg266_jax.bitstream.cabac import init_contexts
     for qp in (0, 17, 22, 27, 32, 37, 51):
         for st in (0, 1, 2):
             s0, s1, r0, r1 = init_contexts(qp, st)

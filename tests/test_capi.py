@@ -10,14 +10,12 @@ import numpy as np
 import pytest
 
 _DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "uvg266_tpu", "native")
+    os.path.abspath(__file__))), "uvg266_jax", "native")
 
 
-def _build():
-    so = "/tmp/libuvg266tpu_test.so"
+def _build(out_dir):
+    so = os.path.join(out_dir, "libuvg266jax_test.so")
     src = os.path.join(_DIR, "capi.cpp")
-    if os.path.exists(so) and os.path.getmtime(so) > os.path.getmtime(src):
-        return so
     inc = sysconfig.get_paths()["include"]
     libdir = sysconfig.get_config_var("LIBDIR")
     ver = sysconfig.get_config_var("LDVERSION")
@@ -73,8 +71,8 @@ class Api(ctypes.Structure):
     ]
 
 
-def test_capi_vtable_encode():
-    so = _build()
+def test_capi_vtable_encode(tmp_path):
+    so = _build(str(tmp_path))
     lib = ctypes.CDLL(so)
     lib.uvgtpu_api_get.restype = ctypes.POINTER(Api)
     api = lib.uvgtpu_api_get(8).contents
@@ -116,7 +114,7 @@ def test_capi_vtable_encode():
     stream = b"".join(aus)
     assert len(stream) > 100
     # independently decode the C-API-produced stream
-    from uvg266_tpu.oracle.ref_decoder import decode_stream
+    from uvg266_jax.oracle.ref_decoder import decode_stream
     frames = decode_stream(stream)
     assert len(frames) == 2
     assert all(fr.checksum_ok for fr in frames)

@@ -1,10 +1,10 @@
 """CCLM tests: parameter derivation properties + e2e oracle round-trip."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.ops.cclm import derive_cclm_params, predict_cclm
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.ops.cclm import derive_cclm_params, predict_cclm
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _src(w, h, seed=23, slope=0.45):

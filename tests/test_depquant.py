@@ -1,12 +1,12 @@
 """Dependent quantization: normative dequant state machine + e2e."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.ops.depquant import STATE_TRANS, dequant_dep, quant_dep
-from uvg266_tpu.ops.quant import dequant
-from uvg266_tpu.ops.transforms import fwd_transform_2d, inv_transform_2d
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.ops.depquant import STATE_TRANS, dequant_dep, quant_dep
+from uvg266_jax.ops.quant import dequant
+from uvg266_jax.ops.transforms import fwd_transform_2d, inv_transform_2d
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def test_state_transition_table():
@@ -43,7 +43,7 @@ def test_trellis_distortion_improves():
     for _ in range(15):
         resid = rng.normal(0, 12, (16, 16)).astype(np.int64)
         coef = fwd_transform_2d(resid, bitdepth=8)
-        from uvg266_tpu.ops.quant import quant
+        from uvg266_jax.ops.quant import quant
         r1 = inv_transform_2d(dequant(quant(coef, 27, 8), 27, 8), bitdepth=8)
         # small lambda isolates the quantizer-grid effect from rate
         r2 = inv_transform_2d(

@@ -3,10 +3,10 @@ stream with an independent DPB, bit-exact recon + checksum match."""
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.consts import SliceType
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.consts import SliceType
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def lp_config(w, h, qp=30, **kw):
@@ -97,8 +97,8 @@ def test_jax_frac_interp_matches_mc_luma():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
-    from uvg266_tpu.ops.inter import fetch_extended_block, mc_luma
-    from uvg266_tpu.ops.me import make_frac_search_fn
+    from uvg266_jax.ops.inter import fetch_extended_block, mc_luma
+    from uvg266_jax.ops.me import make_frac_search_fn
 
     rng = np.random.default_rng(3)
     ref = rng.integers(0, 256, (64, 96)).astype(np.int32)
@@ -136,7 +136,7 @@ def test_two_reference_frames_p():
 
 def test_random_access_gop8():
     """RA B-pyramid GOP8: reordering, future refs, bipred, oracle DPB."""
-    from uvg266_tpu.control.encoder import Encoder, RefLists
+    from uvg266_jax.control.encoder import Encoder, RefLists
 
     w = h = 128
     cfg = lp_config(w, h, 30, gop_len=8, gop_lowdelay=False, ref_frames=4,
@@ -172,7 +172,7 @@ def test_tmvp_lowdelay_roundtrip():
 
 def test_tmvp_random_access_roundtrip():
     """TMVP with future references (col_list=L1, mirror negation)."""
-    from uvg266_tpu.control.encoder import Encoder, RefLists
+    from uvg266_jax.control.encoder import Encoder, RefLists
 
     w = h = 128
     cfg = lp_config(w, h, 30, gop_len=8, gop_lowdelay=False, ref_frames=4,
@@ -206,7 +206,7 @@ def test_tmvp_random_access_roundtrip():
 def test_round_mv_comp():
     """MV float-representation rounding: identity below 6 mantissa bits,
     monotone quantization above (inter.c:1106-1140)."""
-    from uvg266_tpu.control.inter_cand import round_mv_comp
+    from uvg266_jax.control.inter_cand import round_mv_comp
     for v in range(-32, 33):
         assert round_mv_comp(v) == v, v
     # quantized region: error bounded by the exponent step
@@ -218,7 +218,7 @@ def test_round_mv_comp():
 
 
 def test_mv_scaling_pocs():
-    from uvg266_tpu.control.inter_cand import apply_mv_scaling_pocs
+    from uvg266_jax.control.inter_cand import apply_mv_scaling_pocs
     # same distance -> unchanged
     assert apply_mv_scaling_pocs(4, 2, 2, 0, (100, -64)) == (100, -64)
     # half distance -> halved
@@ -232,7 +232,7 @@ def test_mv_scaling_pocs():
 def test_merge_skip_on_static_content():
     """Static content must code P frames as (almost) all skip CUs after
     the merge RD screening (zero-CBF merge -> skip)."""
-    from uvg266_tpu.hls.coding_tree import CodingTreeReader  # noqa: F401
+    from uvg266_jax.hls.coding_tree import CodingTreeReader  # noqa: F401
     cfg = lp_config(128, 128, qp=30, tmvp_enable=True)
     enc = Encoder(cfg)
     rng = np.random.default_rng(2)
@@ -249,7 +249,7 @@ def test_merge_skip_on_static_content():
 
 
 def test_rate_control_converges():
-    from uvg266_tpu.control.encoder import Encoder
+    from uvg266_jax.control.encoder import Encoder
     w, h = 192, 128
     target = 300000
     cfg = lp_config(w, h, 30, target_bitrate=target,
@@ -269,9 +269,9 @@ def test_amvr_syntax_roundtrip():
     matching the reference writer, encode_coding_tree.c:1608)."""
     import numpy as np
 
-    from uvg266_tpu.cfg import Config
-    from uvg266_tpu.control.encoder import Encoder, FramePlanes
-    from uvg266_tpu.oracle.decoder import decode_au
+    from uvg266_jax.cfg import Config
+    from uvg266_jax.control.encoder import Encoder, FramePlanes
+    from uvg266_jax.oracle.decoder import decode_au
     rng = np.random.default_rng(9)
     cfg = Config(width=192, height=128, qp=30, amvr=1)
     enc = Encoder(cfg)

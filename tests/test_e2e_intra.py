@@ -7,11 +7,11 @@ exists in this environment.
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.consts import SliceType
-from uvg266_tpu.control.encoder import FramePlanes, SliceEncoder
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.consts import SliceType
+from uvg266_jax.control.encoder import FramePlanes, SliceEncoder
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def bare_config(w, h, qp=27, **kw):
@@ -152,7 +152,7 @@ def test_e2e_10bit():
 
 
 def test_e2e_monochrome():
-    from uvg266_tpu.consts import ChromaFormat
+    from uvg266_jax.consts import ChromaFormat
     cfg = bare_config(128, 64, 30)
     cfg.input_format = ChromaFormat.CSP_400
     cfg.deblock_enable = True

@@ -10,9 +10,9 @@ reference which disables them.
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def mkframe(w, h, i, maxv=255):

@@ -5,11 +5,11 @@ The golden byte strings below were captured from the reference encoder
 do not need the reference binary.  At matched configs our SPS/PPS must be
 byte-identical and the slice header must be a byte prefix of the slice NAL.
 """
-from uvg266_tpu.bitstream.bitwriter import Bitstream
-from uvg266_tpu.cfg import make_config
-from uvg266_tpu.consts import NalType
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.hls.headers import (
+from uvg266_jax.bitstream.bitwriter import Bitstream
+from uvg266_jax.cfg import make_config
+from uvg266_jax.consts import NalType
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.hls.headers import (
     nal_write,
     write_pps,
     write_slice_header,
@@ -74,12 +74,12 @@ def test_vui_aud_pictiming_roundtrip():
     still parse (header_parse skips VUI by its size field) and decode
     with the oracle."""
     import numpy as np
-    from uvg266_tpu.cfg import Config
-    from uvg266_tpu.control.encoder import Encoder, FramePlanes
-    from uvg266_tpu.hls.header_parse import parse_sps
-    from uvg266_tpu.oracle.decoder import (decode_au, split_nals,
+    from uvg266_jax.cfg import Config
+    from uvg266_jax.control.encoder import Encoder, FramePlanes
+    from uvg266_jax.hls.header_parse import parse_sps
+    from uvg266_jax.oracle.decoder import (decode_au, split_nals,
                                            strip_emulation_prevention)
-    from uvg266_tpu.consts import NalType
+    from uvg266_jax.consts import NalType
     rng = np.random.default_rng(3)
     w = h = 64
     cfg = Config(width=w, height=h, qp=30, gop_len=0, intra_period=1,
@@ -97,7 +97,7 @@ def test_vui_aud_pictiming_roundtrip():
     assert NalType.AUD_NUT in types
     assert types.count(NalType.PREFIX_SEI_NUT) >= 1
     sps_nal = next(n for n in nals if n.type == NalType.SPS_NUT)
-    from uvg266_tpu.bitstream.cabac import BitstreamReader
+    from uvg266_jax.bitstream.cabac import BitstreamReader
     sps = parse_sps(BitstreamReader(
         strip_emulation_prevention(sps_nal.payload)))
     assert sps.width == w

@@ -10,10 +10,10 @@ streams is in test_ref_decode.py.
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import FramePlanes, SliceEncoder, ibc_bv_valid
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import FramePlanes, SliceEncoder, ibc_bv_valid
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def test_bv_validity_window():
@@ -67,7 +67,7 @@ def encode_decode(src, w, h, qp=27, ibc=2, **kw):
 def test_ibc_screen_content_roundtrip_and_gain():
     """IBC must be selected on screen content, round-trip bit-exactly,
     and reduce the bitrate vs the same encode without IBC."""
-    import uvg266_tpu.control.encoder as em
+    import uvg266_jax.control.encoder as em
     src = sc_frame(256, 128)
     won = [0]
     orig = em.try_ibc_cu
@@ -122,9 +122,9 @@ def test_ibc_lowdelay_inter_slices():
     """IBC in P slices (search_ibc.c + the P/B ibc_flag syntax): CUs
     must select IBC in inter frames, the stream must oracle round-trip,
     and IBC must reduce bits on screen content."""
-    import uvg266_tpu.control.encoder as em
-    from uvg266_tpu.consts import SliceType
-    from uvg266_tpu.control.encoder import Encoder
+    import uvg266_jax.control.encoder as em
+    from uvg266_jax.consts import SliceType
+    from uvg266_jax.control.encoder import Encoder
 
     w, h, n = 128, 128, 4
     frames = _sc_clip(w, h, n)
@@ -178,12 +178,12 @@ def test_ibc_bv_refinement_near_match():
     its repeat displacement (-17, 0) OFF the exact-match hash grid and
     off every whole-block seed; only the refinement walk can land on it
     from the (-16, 0) seed."""
-    from uvg266_tpu.consts import SliceType
-    from uvg266_tpu.control.cu import CuInfo, CuMap
-    from uvg266_tpu.control.encoder import (IbcFrameSearch, try_ibc_cu,
+    from uvg266_jax.consts import SliceType
+    from uvg266_jax.control.cu import CuInfo, CuMap
+    from uvg266_jax.control.encoder import (IbcFrameSearch, try_ibc_cu,
                                             reconstruct_intra_cu)
-    from uvg266_tpu.control.inter_cand import HmvpIbcState
-    from uvg266_tpu.control.params import EncoderControl
+    from uvg266_jax.control.inter_cand import HmvpIbcState
+    from uvg266_jax.control.params import EncoderControl
 
     rng = np.random.RandomState(7)
     w = h = 128

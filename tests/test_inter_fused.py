@@ -8,8 +8,8 @@ soak tests)."""
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
 
 W, H, N = 128, 80, 5
 
@@ -30,9 +30,9 @@ def _clip(seed=5):
 
 
 def _encode_and_verify(cfg, path="_dispatch_inter_frame_fused"):
-    from uvg266_tpu.consts import SliceType
-    from uvg266_tpu.control.encoder import RefLists
-    from uvg266_tpu.oracle.decoder import decode_au
+    from uvg266_jax.consts import SliceType
+    from uvg266_jax.control.encoder import RefLists
+    from uvg266_jax.oracle.decoder import decode_au
     enc = Encoder(cfg)
     dpb = {}
     used_fused = []
@@ -98,9 +98,9 @@ def test_host_intra_screen_roundtrip():
     stream stays self-consistent through the oracle decoder."""
     import numpy as np
 
-    from uvg266_tpu.cfg import Config
-    from uvg266_tpu.control.encoder import Encoder, FramePlanes
-    from uvg266_tpu.oracle.ref_decoder import decode_stream
+    from uvg266_jax.cfg import Config
+    from uvg266_jax.control.encoder import Encoder, FramePlanes
+    from uvg266_jax.oracle.ref_decoder import decode_stream
 
     W, H = 192, 120                     # non-16-multiple height
     rng = np.random.RandomState(11)

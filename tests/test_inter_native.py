@@ -10,9 +10,9 @@ a stream mismatch here.
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.consts import SliceType
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
+from uvg266_jax.cfg import Config
+from uvg266_jax.consts import SliceType
+from uvg266_jax.control.encoder import Encoder, FramePlanes
 
 
 def moving_clip(w, h, n, seed=0):

@@ -11,7 +11,7 @@ import struct
 import numpy as np
 import pytest
 
-from uvg266_tpu.ops.intra import (
+from uvg266_jax.ops.intra import (
     pdpc_planar_dc,
     pred_angular,
     pred_dc,

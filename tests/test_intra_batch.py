@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from uvg266_tpu.ops import intra as intra_ops
-from uvg266_tpu.ops.cost import satd
-from uvg266_tpu.ops.intra_batch import (
+from uvg266_jax.ops import intra as intra_ops
+from uvg266_jax.ops.cost import satd
+from uvg266_jax.ops.intra_batch import (
     build_mode_tables,
     make_predict_fn,
     make_satd67_fn,

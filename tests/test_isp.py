@@ -10,11 +10,11 @@ against reference-binary --isp streams is in test_ref_decode.py.
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import FramePlanes, SliceEncoder
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.oracle.decoder import decode_au
-from uvg266_tpu.ops import isp
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import FramePlanes, SliceEncoder
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.oracle.decoder import decode_au
+from uvg266_jax.ops import isp
 
 
 def test_can_use_isp():
@@ -99,7 +99,7 @@ def test_e2e_isp_basic():
 
 def test_e2e_isp_selected(monkeypatch):
     """The encoder must actually pick ISP somewhere on textured content."""
-    import uvg266_tpu.control.encoder as enc_mod
+    import uvg266_jax.control.encoder as enc_mod
     selected = []
     orig = enc_mod.try_isp_modes
 
@@ -129,7 +129,7 @@ def test_e2e_isp_tools(tool):
 
 def test_one_and_two_point_transforms():
     """1xN/2xN ISP sub-TUs exercise the 1- and 2-point DCT2 paths."""
-    from uvg266_tpu.ops.transforms import fwd_transform_2d, inv_transform_2d
+    from uvg266_jax.ops.transforms import fwd_transform_2d, inv_transform_2d
     rng = np.random.default_rng(3)
     for (w, h) in [(1, 16), (16, 1), (2, 8), (8, 2), (1, 32), (2, 16)]:
         resid = rng.integers(-64, 64, size=(h, w)).astype(np.int64)

@@ -1,10 +1,10 @@
 """LFNST tests: transform invertibility properties + e2e oracle."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.ops.lfnst import _lfnst_mode, fwd_lfnst, inv_lfnst
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.ops.lfnst import _lfnst_mode, fwd_lfnst, inv_lfnst
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def test_lfnst_mode_mapping():

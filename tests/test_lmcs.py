@@ -8,13 +8,13 @@ scale :1452, APS syntax :1360).
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.consts import SliceType
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.ops.lmcs import (build_luts, derive_frame_luts,
+from uvg266_jax.cfg import Config
+from uvg266_jax.consts import SliceType
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.ops.lmcs import (build_luts, derive_frame_luts,
                                  scale_chroma_residual_fwd,
                                  scale_chroma_residual_inv)
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _content(w, h, seed=5):
@@ -56,10 +56,10 @@ def test_chroma_residual_scale_roundtrip():
 
 
 def test_aps_syntax_roundtrip():
-    from uvg266_tpu.bitstream.bitwriter import (Bitstream, BitstreamReader,
+    from uvg266_jax.bitstream.bitwriter import (Bitstream, BitstreamReader,
                                                 strip_emulation_prevention)
-    from uvg266_tpu.hls.header_parse import parse_lmcs_aps
-    from uvg266_tpu.hls.headers import write_lmcs_aps
+    from uvg266_jax.hls.header_parse import parse_lmcs_aps
+    from uvg266_jax.hls.headers import write_lmcs_aps
     y, u, v = _content(128, 128)
     luts = derive_frame_luts(y, u, v, 8, 27)
     bs = Bitstream()

@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from uvg266_tpu.ops.me_frame import (TILE, make_frame_inter_fn,
+from uvg266_jax.ops.me_frame import (TILE, make_frame_inter_fn,
                                      make_leaf_qpel_fn, mv_bits_table)
 
 R = 16
@@ -48,10 +48,10 @@ CLASSES = (
 
 def test_fullpel_matches_brute_force(frames):
     src, ref = frames
-    from uvg266_tpu.control.partition import qp_to_lambda
-    from uvg266_tpu.ops.fast_cost_tables import FAST_COEFF_WTS
-    from uvg266_tpu.ops.me import make_mv_penalty
-    from uvg266_tpu.ops.rd_cost import make_rd_cost_pred_fn
+    from uvg266_jax.control.partition import qp_to_lambda
+    from uvg266_jax.ops.fast_cost_tables import FAST_COEFF_WTS
+    from uvg266_jax.ops.me import make_mv_penalty
+    from uvg266_jax.ops.rd_cost import make_rd_cost_pred_fn
     import jax
 
     qp, lam = 27, qp_to_lambda(27)
@@ -93,8 +93,8 @@ def test_fullpel_matches_brute_force(frames):
 def test_leaf_qpel_matches_frac_search(frames):
     src, ref = frames
     import jax
-    from uvg266_tpu.ops.inter import fetch_extended_block
-    from uvg266_tpu.ops.me import make_frac_search_fn
+    from uvg266_jax.ops.inter import fetch_extended_block
+    from uvg266_jax.ops.me import make_frac_search_fn
 
     w, h = 16, 16
     x, y, mvx, mvy = 16, 8, 3, -2

@@ -2,11 +2,11 @@
 import jax
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.ops.mip import (make_mip_preds_fn, mip_mode_count,
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.ops.mip import (make_mip_preds_fn, mip_mode_count,
                                 mip_predict_np, mip_size_id)
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def test_size_ids():

@@ -1,11 +1,11 @@
 """MRL (multi-reference-line intra) tests."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.ops.intra import (build_reference, build_reference_mrl,
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.ops.intra import (build_reference, build_reference_mrl,
                                   predict_intra, predict_intra_mrl)
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def test_mrl_line0_equivalence_shape():

@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from uvg266_tpu.bitstream.bitwriter import Bitstream
-from uvg266_tpu.bitstream.cabac import Cabac
-from uvg266_tpu.hls.residual import encode_coeff_nxn
+from uvg266_jax.bitstream.bitwriter import Bitstream
+from uvg266_jax.bitstream.cabac import Cabac
+from uvg266_jax.hls.residual import encode_coeff_nxn
 
 try:
-    from uvg266_tpu.native import NativeCabac, get_lib
+    from uvg266_jax.native import NativeCabac, get_lib
     get_lib()
     HAVE_NATIVE = True
 except Exception:

@@ -2,10 +2,10 @@
 CodingTreeWriter: byte-identical access units on the all-intra path."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import FramePlanes, SliceEncoder
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import FramePlanes, SliceEncoder
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _frame(w, h, seed=3):
@@ -69,7 +69,7 @@ def _clip(w, h, n, seed=3):
 
 
 def _encode_seq(cfgkw, frames, force_python):
-    from uvg266_tpu.control.encoder import Encoder
+    from uvg266_jax.control.encoder import Encoder
     cfg = Config(width=frames[0].y.shape[1], height=frames[0].y.shape[0],
                  qp=30, sao_type=3, deblock_enable=True,
                  signhide_enable=True, **cfgkw)

@@ -1,8 +1,8 @@
 """Frame-level OBA rate control: convergence not worse than R-lambda."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
 
 
 def _frames(n, w=192, h=128, seed=9):

@@ -1,4 +1,4 @@
-"""Effective tool configuration per preset (VERDICT round-1 weak #2).
+"""Effective tool configuration per preset.
 
 EncoderControl applies documented tool-exclusion guards (params.py:37-78)
 — e.g. dep-quant disables RDOQ/LFNST/trskip, dual-tree disables
@@ -12,8 +12,8 @@ an empty EXPECTED_DROPS means preset parity with the reference.
 """
 import pytest
 
-from uvg266_tpu.cfg import PRESETS, make_config
-from uvg266_tpu.control.params import EncoderControl
+from uvg266_jax.cfg import PRESETS, make_config
+from uvg266_jax.control.params import EncoderControl
 
 TOOLS = ("rdoq_enable", "dep_quant", "lfnst", "trskip_enable", "mts",
          "jccr", "cclm", "mip", "mrl", "dual_tree", "sao_type",

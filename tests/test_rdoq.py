@@ -6,13 +6,13 @@ only steer the encoder, so the oracle round-trip must stay exact.
 """
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.control.partition import qp_to_lambda
-from uvg266_tpu.ops.quant import dequant, quant
-from uvg266_tpu.ops.rdoq import rdoq_levels
-from uvg266_tpu.ops.transforms import fwd_transform_2d, inv_transform_2d
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.control.partition import qp_to_lambda
+from uvg266_jax.ops.quant import dequant, quant
+from uvg266_jax.ops.rdoq import rdoq_levels
+from uvg266_jax.ops.transforms import fwd_transform_2d, inv_transform_2d
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _src(w, h, seed=11):
@@ -43,9 +43,9 @@ def test_rdoq_levels_sane():
 
 def _real_tu_bits(lv):
     """Actual CABAC bits of one TU's residual (fresh engine per TU)."""
-    from uvg266_tpu.bitstream.bitwriter import Bitstream
-    from uvg266_tpu.bitstream.cabac import Cabac
-    from uvg266_tpu.hls.residual import encode_coeff_nxn
+    from uvg266_jax.bitstream.bitwriter import Bitstream
+    from uvg266_jax.bitstream.cabac import Cabac
+    from uvg266_jax.hls.residual import encode_coeff_nxn
     cabac = Cabac(Bitstream())
     cabac.init_contexts(27, 2)
     encode_coeff_nxn(cabac, np.asarray(lv, np.int16), True)

@@ -117,7 +117,7 @@ CONFIGS = {
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_decode_reference_stream(clip, tmp_path, name):
-    from uvg266_tpu.oracle.ref_decoder import decode_stream
+    from uvg266_jax.oracle.ref_decoder import decode_stream
 
     data = ref_encode(clip, str(tmp_path / f"{name}.266"), CONFIGS[name])
     frames = decode_stream(data)
@@ -163,8 +163,8 @@ IBC_CONFIGS = {
 
 @pytest.mark.parametrize("name", sorted(IBC_CONFIGS))
 def test_decode_reference_ibc_stream(sc_clip, tmp_path, name):
-    import uvg266_tpu.control.encoder as em
-    from uvg266_tpu.oracle.ref_decoder import decode_stream
+    import uvg266_jax.control.encoder as em
+    from uvg266_jax.oracle.ref_decoder import decode_stream
 
     n_ibc = [0]
     orig = em.reconstruct_ibc_cu
@@ -204,7 +204,7 @@ def test_decode_reference_alf_inter(clip, tmp_path):
     (incl. chroma alternatives, clips, fixed filter sets) decode with
     matching hashes — see CONFIGS above.
     """
-    from uvg266_tpu.oracle.ref_decoder import decode_stream
+    from uvg266_jax.oracle.ref_decoder import decode_stream
 
     data = ref_encode(clip, str(tmp_path / "alf_inter.266"),
                       ["--gop", "lp-g4d3t1", "--alf", "no-cc", "--sao",
@@ -223,7 +223,7 @@ def test_decode_reference_wpp_partial_ctu(tmp_path):
     shows on content where an encoder CU at a CTU right edge picks a
     clamped candidate index.
     """
-    from uvg266_tpu.oracle.ref_decoder import decode_stream
+    from uvg266_jax.oracle.ref_decoder import decode_stream
 
     W, H, N = 416, 240, 4
     rng = np.random.RandomState(3)

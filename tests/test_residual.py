@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from uvg266_tpu.bitstream.bitwriter import (Bitstream, BitstreamReader,
+from uvg266_jax.bitstream.bitwriter import (Bitstream, BitstreamReader,
     strip_emulation_prevention)
-from uvg266_tpu.bitstream.cabac import Cabac, CabacDecoder
-from uvg266_tpu.hls.residual import decode_coeff_nxn, encode_coeff_nxn
-from uvg266_tpu.ops.scan import cg_scan_table, coeff_scan_table
+from uvg266_jax.bitstream.cabac import Cabac, CabacDecoder
+from uvg266_jax.hls.residual import decode_coeff_nxn, encode_coeff_nxn
+from uvg266_jax.ops.scan import cg_scan_table, coeff_scan_table
 
 # Reference tables from /root/reference/src/tables.c (generated file):
 REF_DIAG_4x4 = [0, 4, 1, 8, 5, 2, 12, 9, 6, 3, 13, 10, 7, 14, 11, 15]

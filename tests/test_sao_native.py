@@ -2,14 +2,14 @@
 sao_search_frame loop: identical per-CTU decisions."""
 import numpy as np
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import FramePlanes
-from uvg266_tpu.control.params import EncoderControl
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import FramePlanes
+from uvg266_jax.control.params import EncoderControl
 
 
 def _cmp(w, h, seed, lam, mono=False, bitdepth=8):
-    import uvg266_tpu.control.sao as sao_mod
-    from uvg266_tpu.native import sao_search_native
+    import uvg266_jax.control.sao as sao_mod
+    from uvg266_jax.native import sao_search_native
     rng = np.random.default_rng(seed)
     mx = (1 << bitdepth) - 1
     cfg = Config(width=w, height=h, input_bitdepth=bitdepth,
@@ -36,7 +36,7 @@ def _cmp(w, h, seed, lam, mono=False, bitdepth=8):
     # force the python path
     orig = sao_mod.sao_search_frame.__globals__
     import importlib
-    import uvg266_tpu.native as native_mod
+    import uvg266_jax.native as native_mod
     real = native_mod.sao_search_native
     try:
         del native_mod.sao_search_native

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes, SliceEncoder
-from uvg266_tpu.control.params import EncoderControl, FrameState
-from uvg266_tpu.oracle.decoder import decode_au
-from uvg266_tpu.ops.scaling_lists import (DEFAULT_8X8_INTRA, INTRA_Y,
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes, SliceEncoder
+from uvg266_jax.control.params import EncoderControl, FrameState
+from uvg266_jax.oracle.decoder import decode_au
+from uvg266_jax.ops.scaling_lists import (DEFAULT_8X8_INTRA, INTRA_Y,
                                           ScalingLists, quant_matrix)
 
 
@@ -41,7 +41,7 @@ def test_default_matrix_derivation():
 
 def test_quant_dequant_matrix_flat_equivalence():
     """A flat-16 matrix must reproduce the no-matrix path exactly."""
-    from uvg266_tpu.ops.quant import dequant, quant
+    from uvg266_jax.ops.quant import dequant, quant
     rng = np.random.default_rng(3)
     for (w, h) in ((8, 8), (16, 8), (32, 16)):
         coef = rng.integers(-500, 500, (h, w)).astype(np.int64)
@@ -74,8 +74,8 @@ def test_cqm_file_parser(tmp_path):
 
 
 def test_scaling_aps_roundtrip():
-    from uvg266_tpu.bitstream.bitwriter import Bitstream, BitstreamReader
-    from uvg266_tpu.hls.scaling_list_syntax import (parse_scaling_aps,
+    from uvg266_jax.bitstream.bitwriter import Bitstream, BitstreamReader
+    from uvg266_jax.hls.scaling_list_syntax import (parse_scaling_aps,
                                                     write_scaling_aps)
     sl = ScalingLists.default()
     sl.base[(1, 0)] = np.arange(1, 65, dtype=np.int32).reshape(8, 8)
@@ -123,7 +123,7 @@ def test_e2e_scaling_lists_inter():
 def test_scaling_lists_shift_bits_high_freq():
     """Default matrices quantize high frequencies coarser: HF coeff
     levels shrink vs flat at identical input."""
-    from uvg266_tpu.ops.quant import quant
+    from uvg266_jax.ops.quant import quant
     sl = ScalingLists.default()
     m = quant_matrix(sl, 8, 8, 0, True)
     coef = np.full((8, 8), 300, dtype=np.int64)

@@ -11,9 +11,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.ref_decoder import decode_stream
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.ref_decoder import decode_stream
 
 REF_BIN = "/tmp/uvgbuild/uvg266"
 

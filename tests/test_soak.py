@@ -5,9 +5,9 @@ control drift, GOP reordering with tool state)."""
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _clip(w, h, n, seed=3):
@@ -51,7 +51,7 @@ def test_soak_mixed_tools(kw):
     assert len(results) == n
     dec_dpb = {}
     dec_aps = {}
-    from uvg266_tpu.control.encoder import RefLists
+    from uvg266_jax.control.encoder import RefLists
     for au, rec, fs, rl, _s in results:
         pocs0 = [fs.poc - d for d in fs.ref_pocs_neg]
         pocs1 = [fs.poc + d for d in fs.ref_pocs_pos] or list(pocs0)

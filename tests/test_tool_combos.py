@@ -7,9 +7,9 @@ order, context state, recon feedback) are where mismatches hide.
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def _src(w, h, seed):
@@ -95,7 +95,7 @@ def test_combo_inter_roundtrip(extra):
 def test_cli_presets_roundtrip(tmp_path):
     """CLI --preset end-to-end through main(): each preset encodes and
     passes the oracle (--verify asserts internally)."""
-    import uvg266_tpu.tools.encode as E
+    import uvg266_jax.tools.encode as E
     src = _src(128, 96, seed=9)
     raw = tmp_path / "in.yuv"
     with open(raw, "wb") as f:
@@ -113,7 +113,7 @@ def test_cli_presets_roundtrip(tmp_path):
 def test_cli_preset_flag_override(tmp_path):
     """An explicit tool flag on top of a preset must change the stream
     (ultrafast has cclm off; --cclm turns it on)."""
-    import uvg266_tpu.tools.encode as E
+    import uvg266_jax.tools.encode as E
     src = _src(128, 96, seed=9)
     raw = tmp_path / "in.yuv"
     with open(raw, "wb") as f:

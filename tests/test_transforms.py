@@ -3,9 +3,9 @@ import hashlib
 import numpy as np
 import pytest
 
-from uvg266_tpu.ops import tr_matrices as T
-from uvg266_tpu.ops.quant import dequant, quant
-from uvg266_tpu.ops.transforms import (
+from uvg266_jax.ops import tr_matrices as T
+from uvg266_jax.ops.quant import dequant, quant
+from uvg266_jax.ops.transforms import (
     fwd_transform_2d,
     inv_transform_2d,
     make_fwd_fn,
@@ -126,7 +126,7 @@ def test_quant_zero_at_high_qp():
 
 def test_jax_quant_matches_numpy():
     import jax
-    from uvg266_tpu.ops.quant import make_dequant_fn, make_quant_fn
+    from uvg266_jax.ops.quant import make_dequant_fn, make_quant_fn
     rng = np.random.RandomState(5)
     c = rng.randint(-3000, 3000, (4, 8, 8)).astype(np.int32)
     for qp in (17, 30, 44):

@@ -1,14 +1,14 @@
 """Transform skip + TS residual coding tests."""
 import numpy as np
 
-from uvg266_tpu.bitstream.bitwriter import (Bitstream, BitstreamReader,
+from uvg266_jax.bitstream.bitwriter import (Bitstream, BitstreamReader,
                                             strip_emulation_prevention)
-from uvg266_tpu.bitstream.cabac import Cabac, CabacDecoder
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.hls.ts_residual import (decode_ts_residual,
+from uvg266_jax.bitstream.cabac import Cabac, CabacDecoder
+from uvg266_jax.cfg import Config
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.hls.ts_residual import (decode_ts_residual,
                                         encode_ts_residual)
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def test_tsrc_roundtrip_blocks():

@@ -6,10 +6,10 @@ picture hashes (decode side additionally proven against reference-binary
 import numpy as np
 import pytest
 
-from uvg266_tpu.cfg import Config
-from uvg266_tpu.consts import SliceType
-from uvg266_tpu.control.encoder import Encoder, FramePlanes
-from uvg266_tpu.oracle.decoder import decode_au
+from uvg266_jax.cfg import Config
+from uvg266_jax.consts import SliceType
+from uvg266_jax.control.encoder import Encoder, FramePlanes
+from uvg266_jax.oracle.decoder import decode_au
 
 
 def textured_clip(w, h, n, seed=4):
@@ -76,8 +76,8 @@ def test_vaq_wpp_roundtrip():
 
 def test_vaq_offsets_vary():
     # the busy/flat halves must get different QPs
-    from uvg266_tpu.control.encoder import vaq_ctu_qps
-    from uvg266_tpu.control.params import EncoderControl
+    from uvg266_jax.control.encoder import vaq_ctu_qps
+    from uvg266_jax.control.params import EncoderControl
     cfg = Config(width=192, height=128, qp=30, vaq=5)
     ctrl = EncoderControl(cfg)
     src = textured_clip(192, 128, 1)[0]

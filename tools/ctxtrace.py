@@ -7,7 +7,10 @@ followed by the raw 2094-byte ctx struct: 349 contexts x 6 bytes
 (u16 state[2] + u8 rate + pad), struct order cabac.h:68-130.
 We decode the same stream with CodingTreeReader, snapshot (s0, s1) after
 every leaf, and diff per context family — pinpointing the first divergent
-syntax element (see memory: ref-conformance-debug-recipe).
+syntax element.
+
+This is a host-only CABAC-bin debugging tool: it decodes on the CPU and
+never opens an accelerator, so it pins JAX to the CPU backend.
 
 Usage: python tools/ctxtrace.py stream.266 trace.bin
 """
@@ -122,8 +125,8 @@ def parse_trace(path: str):
 def our_snapshots(stream_path: str):
     """Decode the stream, snapshotting (x, y, tree_type, s0, s1) after
     every leaf CU (matching the reference's E-record points)."""
-    from uvg266_tpu.hls.coding_tree import CodingTreeReader
-    from uvg266_tpu.oracle import ref_decoder
+    from uvg266_jax.hls.coding_tree import CodingTreeReader
+    from uvg266_jax.oracle import ref_decoder
     snaps = []
     orig = CodingTreeReader._decode_cu
 
@@ -144,7 +147,7 @@ def our_snapshots(stream_path: str):
 
 
 def compare(stream: str, trace: str, max_report: int = 5) -> int:
-    from uvg266_tpu.bitstream.ctx_tables import OFF
+    from uvg266_jax.bitstream.ctx_tables import OFF
     recs = [r for r in parse_trace(trace) if r[0] == "E"]
     snaps, _frames = our_snapshots(stream)
     print(f"reference E-records: {len(recs)}  our leaf snapshots: {len(snaps)}")

@@ -1,0 +1,4514 @@
+"""All-intra frame encoder: partition, mode search, reconstruction, and
+bitstream assembly (sequential host-exact path).
+
+This is the correctness-anchor implementation of the two-phase design
+(SURVEY.md §7): phase 1 walks CTUs producing decisions + reconstruction,
+phase 2 CABAC-encodes the decided syntax. The batched JAX search kernels
+slot into phase 1; this module stays as the golden model.
+
+Control flow parity with the reference frame pipeline:
+- uvg_encode_one_frame / encoder_state_encode_leaf
+  (/root/reference/src/encoderstate.c:2051, :1004)
+- per-LCU worker ordering (encoderstate.c:734-860)
+- slice-end CABAC termination (encoderstate.c:921-940)
+"""
+from __future__ import annotations
+
+import subprocess
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..bitstream.bitwriter import Bitstream
+from ..bitstream.cabac import Cabac
+from ..consts import COLOR_U, COLOR_V, COLOR_Y, LCU_WIDTH, NalType, SliceType, TR_MAX_WIDTH
+from ..hls import headers
+from ..hls.coding_tree import CodingTreeWriter
+from ..ops import intra as intra_ops
+from ..ops.cost import satd
+from ..ops.quant import dequant, quant
+from ..ops.transforms import fwd_transform_2d, inv_transform_2d
+from .cu import (CU_IBC, CU_INTER, CU_INTRA, NO_SPLIT, QT_SPLIT, CtuNode,
+                 CuInfo, CuMap, split_locs)
+from .params import EncoderControl, FrameState
+
+
+def _predict_tables(mode: int, w: int, h: int, refs, bitdepth: int,
+                    is_chroma: bool, cu_log2_w: int | None = None,
+                    cu_log2_h: int | None = None) -> np.ndarray:
+    """Table-driven exact intra prediction (vectorized scalar path).
+
+    Note: tables are built for PU == CU; for the implicit TU split of
+    64x64 CUs the wide-angle/smoothing decisions use the TU size, which
+    matches the reference behavior of intra_predict_regular on the split
+    blocks (intra.c:1372 called per TU).
+    """
+    from ..ops.intra_batch import build_mode_tables, predict_one_np
+    tables = build_mode_tables(w, h, bitdepth, is_chroma)
+    return predict_one_np(tables, refs, mode)
+
+
+@dataclass
+class FramePlanes:
+    y: np.ndarray
+    u: np.ndarray | None
+    v: np.ndarray | None
+    # TMVP motion snapshot (inter_cand.MotionField) attached when the
+    # picture may serve as a collocated reference (cu_array analogue,
+    # inter.c:1062)
+    motion: object = None
+
+    def plane(self, color: int) -> np.ndarray:
+        return (self.y, self.u, self.v)[color]
+
+
+@dataclass
+class RefLists:
+    """Reference picture lists (frame_info ref_LX analogue)."""
+    l0: list
+    l1: list
+    pocs0: list
+    pocs1: list
+
+    @classmethod
+    def from_single(cls, refs: list, fs) -> "RefLists":
+        pocs = [fs.poc - d for d in fs.ref_pocs_neg][:len(refs)]
+        return cls(l0=list(refs), l1=list(refs), pocs0=list(pocs),
+                   pocs1=list(pocs))
+
+
+def _rc_distortion(rec, src) -> float:
+    """Mean luma SSD per pixel over the source extent (the OBA model's
+    distortion input)."""
+    h, w = src.y.shape
+    d = rec.y[:h, :w].astype(np.int64) - src.y
+    return float(np.mean(d * d))
+
+
+def pad_plane(p: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Edge-replicate pad to (h, w)."""
+    ph, pw = p.shape
+    if ph == h and pw == w:
+        return p.astype(np.int32)
+    out = np.empty((h, w), dtype=np.int32)
+    out[:ph, :pw] = p
+    if pw < w:
+        out[:ph, pw:] = p[:, -1:]
+    if ph < h:
+        out[ph:, :] = out[ph - 1:ph, :]
+    return out
+
+
+def vaq_ctu_qps(src_planes, cfg, ctrl, frame_qp: int,
+                base=None) -> np.ndarray:
+    """Variance adaptive quantization: per-CTU QP offsets from the
+    luma+chroma variance ratio to the frame (encoderstate.c:1797-1879).
+    Returns the per-CTU QP array (frame_qp + clipped offsets)."""
+    d = cfg.vaq * 0.1
+    w, h = cfg.width, cfg.height
+    y = src_planes.y[:h, :w].astype(np.float64)
+    has_chroma = src_planes.u is not None
+
+    def pvar(a):
+        m = a.mean()
+        return float(((a - m) ** 2).mean())
+
+    frame_var = pvar(y)
+    if has_chroma:
+        frame_var += pvar(src_planes.u[:h // 2, :w // 2].astype(np.float64))
+        frame_var += pvar(src_planes.v[:h // 2, :w // 2].astype(np.float64))
+    wl, hl = ctrl.width_in_lcu, ctrl.height_in_lcu
+
+    def tiles_var(p, t):
+        ph, pw = p.shape
+        ext = np.empty((hl * t, wl * t), dtype=np.float64)
+        ext[:ph, :pw] = p
+        if pw < wl * t:
+            ext[:ph, pw:] = p[:, -1:]
+        if ph < hl * t:
+            ext[ph:, :] = ext[ph - 1:ph, :]
+        tl = ext.reshape(hl, t, wl, t).transpose(0, 2, 1, 3) \
+            .reshape(hl * wl, t * t)
+        m = tl.mean(axis=1, keepdims=True)
+        return ((tl - m) ** 2).mean(axis=1)
+
+    lcu_var = tiles_var(src_planes.y[:h, :w].astype(np.float64), 64)
+    if has_chroma:
+        lcu_var = lcu_var + tiles_var(
+            src_planes.u[:h // 2, :w // 2].astype(np.float64), 32)
+        lcu_var = lcu_var + tiles_var(
+            src_planes.v[:h // 2, :w // 2].astype(np.float64), 32)
+    off = d * (np.log(np.maximum(lcu_var, 1e-10))
+               - np.log(max(frame_var, 1e-10)))
+    # C round() = half away from zero; clip per rate_control.c:1196-1203
+    off_i = np.where(off >= 0, np.floor(off + 0.5),
+                     np.ceil(off - 0.5)).astype(np.int32)
+    base_qps = np.full(hl * wl, frame_qp, dtype=np.int32) \
+        if base is None else np.asarray(base, dtype=np.int32)
+    qps = np.clip(base_qps + off_i, frame_qp - 13, frame_qp + 12)
+    return np.clip(qps, 0, 51).astype(np.int32)
+
+
+def assign_cu_qps(leaves, ctrl, slice_qp: int) -> np.ndarray:
+    """Post-finalize QP bake (set_cu_qps, encoderstate.c:630-695): CUs
+    before the quantization group's first coded CU take the predicted
+    QP (their delta is never signaled), and the writer/decoder derive
+    the same values. Returns the per-4x4 luma QP map (deblock input).
+    leaves: coding-order leaves with .cu set."""
+    h4, w4 = -(-ctrl.in_height // 4), -(-ctrl.in_width // 4)
+    qp4 = np.zeros((h4, w4), dtype=np.int32)
+    last_qp = slice_qp
+    cur_ctu = None
+    coded = False
+    pred = slice_qp
+    ctu_last = slice_qp
+    for leaf in leaves:
+        cu = leaf.cu
+        key = (cu.y // LCU_WIDTH, cu.x // LCU_WIDTH)
+        if key != cur_ctu:
+            if cur_ctu is not None:
+                last_qp = ctu_last
+            cur_ctu = key
+            coded = False
+            cx, cy = key[1] * LCU_WIDTH, key[0] * LCU_WIDTH
+            if cx == 0 and cy > 0:
+                pred = int(qp4[(cy - 1) // 4, 0])
+            else:
+                pred = last_qp
+        if any(cu.cbf.values()):
+            coded = True
+        if not coded:
+            cu.qp = pred
+        qp4[cu.y // 4:(cu.y + cu.h) // 4,
+            cu.x // 4:(cu.x + cu.w) // 4] = cu.qp
+        ctu_last = cu.qp
+    return qp4
+
+
+def _qm(ctrl, w: int, h: int, comp: int, cu_is_intra: bool):
+    """Scaling-list matrix for a TU, or None when lists are off."""
+    sl = getattr(ctrl, "scaling_lists", None)
+    if sl is None:
+        return None
+    from ..ops.scaling_lists import quant_matrix
+    return quant_matrix(sl, w, h, comp, cu_is_intra)
+
+
+def transform_quant_recon(src_block: np.ndarray, pred: np.ndarray,
+                          qp_scaled: int, bitdepth: int = 8,
+                          is_intra_slice: bool = True,
+                          signhide: bool = False, tr_idx: int = 0,
+                          rdoq_lam: float = 0.0,
+                          dep_quant: bool = False,
+                          qmat: np.ndarray | None = None,
+                          lmcs_adj: int = 0,
+                          tr_types: tuple | None = None):
+    """Forward path for one TU: returns (coeff_q, recon, cbf).
+
+    rdoq_lam > 0 switches scalar quant to RDOQ level decisions.
+    tr_idx == 1 is transform skip (identity transform, TS quant scaling,
+    transform.c uvg_transformskip:223; sign hiding does not apply).
+    lmcs_adj != 0: LMCS chroma residual scaling — the residual is
+    forward-scaled before the transform and the reconstruction residual
+    inverse-scaled (strategies/generic/quant-generic.c:482,573)."""
+    from ..ops.rd_cost import MTS_PAIRS
+    resid = src_block.astype(np.int64) - pred.astype(np.int64)
+    if lmcs_adj:
+        from ..ops.lmcs import scale_chroma_residual_fwd
+        resid = scale_chroma_residual_fwd(resid, lmcs_adj, bitdepth)
+
+    def _inv(r):
+        if lmcs_adj:
+            from ..ops.lmcs import scale_chroma_residual_inv
+            return scale_chroma_residual_inv(r, lmcs_adj, bitdepth)
+        return r
+
+    if tr_idx == 1:
+        q = quant(resid, qp_scaled, bitdepth, transform_skip=True,
+                  is_intra_slice=is_intra_slice)
+        if not q.any():
+            return None, np.clip(pred, 0,
+                                 (1 << bitdepth) - 1).astype(np.int32), 0
+        dq = dequant(q, qp_scaled, bitdepth, transform_skip=True)
+        recon = np.clip(pred.astype(np.int64) + _inv(dq), 0,
+                        (1 << bitdepth) - 1).astype(np.int32)
+        return q.astype(np.int32), recon, 1
+    th, tv = tr_types if tr_types is not None \
+        else MTS_PAIRS.get(tr_idx, (0, 0))
+    coef = fwd_transform_2d(resid, type_hor=th, type_ver=tv,
+                            bitdepth=bitdepth)
+    if dep_quant:
+        from ..ops.depquant import dequant_dep, quant_dep
+        q = quant_dep(coef, qp_scaled, bitdepth,
+                      is_intra_slice=is_intra_slice)
+        if not q.any():
+            return None, np.clip(pred, 0,
+                                 (1 << bitdepth) - 1).astype(np.int32), 0
+        dq = dequant_dep(q, qp_scaled, bitdepth)
+        r = inv_transform_2d(dq, type_hor=th, type_ver=tv, bitdepth=bitdepth)
+        recon = np.clip(pred.astype(np.int64) + _inv(r), 0,
+                        (1 << bitdepth) - 1).astype(np.int32)
+        return q.astype(np.int32), recon, 1
+    if rdoq_lam > 0.0:
+        from ..ops.quant import _sign_hide, quant_params
+        from ..ops.rdoq import LOG2 as _L, rdoq_levels
+        q = rdoq_levels(coef, qp_scaled, bitdepth, rdoq_lam, is_intra_slice)
+        if signhide and int(np.abs(q.astype(np.int64)).sum()) >= 2:
+            h2, w2 = coef.shape
+            scale, q_bits, _a = quant_params(qp_scaled, _L[w2], _L[h2],
+                                             bitdepth, False, is_intra_slice)
+            a = np.abs(coef.astype(np.int64))
+            lv = np.abs(q.astype(np.int64))
+            delta_u = ((a * scale - (lv << q_bits)) >> (q_bits - 8))
+            _sign_hide(q, coef, delta_u, w2, h2)
+    else:
+        q = quant(coef, qp_scaled, bitdepth, is_intra_slice=is_intra_slice,
+                  signhide=signhide, qmat=qmat)
+    if not q.any():
+        return None, np.clip(pred, 0, (1 << bitdepth) - 1).astype(np.int32), 0
+    dq = dequant(q, qp_scaled, bitdepth, qmat=qmat)
+    r = inv_transform_2d(dq, type_hor=th, type_ver=tv, bitdepth=bitdepth)
+    recon = np.clip(pred.astype(np.int64) + _inv(r), 0,
+                    (1 << bitdepth) - 1).astype(np.int32)
+    return q.astype(np.int32), recon, 1
+
+
+def _try_jccr(cu, rel, preds, srcs, qp_c, bd, lam, sign,
+              is_intra_slice=True, signhide=False, lmcs_adj=0,
+              dep_quant=False):
+    """Joint Cb-Cr (mode 2) RD check for one chroma TU pair.
+
+    preds/srcs: {color: block}. If the joint residual wins, overwrites
+    cu cbf/coeffs for U and V and returns {color: recon}; else None.
+    (VVC tu_joint_cbcr_residual_flag, reconstruction resCr = CSign*resCb;
+    reference transform.c joint-chroma path.)"""
+    # NOTE: the reference's joint-CbCr quantizer has the LMCS chroma
+    # residual scaling COMMENTED OUT in both directions
+    # (quant-generic.c:305-315, :372-385 in uvg_quant_cbcr_residual) —
+    # joint TUs carry unscaled residuals even with chroma adj on;
+    # lmcs_adj is accepted but deliberately unused here for parity.
+    del lmcs_adj
+    ru = srcs[COLOR_U].astype(np.int64) - preds[COLOR_U].astype(np.int64)
+    rv = srcs[COLOR_V].astype(np.int64) - preds[COLOR_V].astype(np.int64)
+    joint = np.round((ru + sign * rv) / 2.0).astype(np.int64)
+    coef = fwd_transform_2d(joint, bitdepth=bd)
+    if dep_quant:
+        from ..ops.depquant import dequant_dep, quant_dep
+        q = quant_dep(coef, qp_c, bd, is_intra_slice=is_intra_slice)
+    else:
+        q = quant(coef, qp_c, bd, is_intra_slice=is_intra_slice,
+                  signhide=signhide)
+    if not q.any():
+        return None
+    dq = dequant_dep(q, qp_c, bd) if dep_quant else dequant(q, qp_c, bd)
+    r = inv_transform_2d(dq, bitdepth=bd)
+    rec_u = np.clip(preds[COLOR_U].astype(np.int64) + r, 0,
+                    (1 << bd) - 1).astype(np.int32)
+    rec_v = np.clip(preds[COLOR_V].astype(np.int64) + sign * r, 0,
+                    (1 << bd) - 1).astype(np.int32)
+    ssd_j = float(((srcs[COLOR_U] - rec_u.astype(np.int64)) ** 2).sum())         + float(((srcs[COLOR_V] - rec_v.astype(np.int64)) ** 2).sum())
+    cost_j = ssd_j + lam * (3.0 * float(np.abs(q).sum()) + 2.0)
+
+    # separate-coding cost from the already-decided cbf/coeffs
+    ssd_s = 0.0
+    bits_s = 2.0
+    for color in (COLOR_U, COLOR_V):
+        blk = cu.coeffs.get((color, *rel))
+        if blk is not None:
+            bits_s += 3.0 * float(np.abs(blk).sum())
+    for color, rec in cu._jccr_sep_rec.items():
+        ssd_s += float(((srcs[color] - rec.astype(np.int64)) ** 2).sum())
+    # require a clear margin: the level-mass bit proxy underestimates the
+    # second block's overhead less than it underestimates sign/ctx costs
+    if cost_j >= 0.9 * (ssd_s + lam * bits_s):
+        return None
+    cu.joint_cb_cr[rel] = 2     # TuCResMode 2: cbf_u=cbf_v=1
+    cu.cbf[(COLOR_U, *rel)] = 1
+    cu.cbf[(COLOR_V, *rel)] = 1
+    cu.coeffs[(COLOR_U, *rel)] = q.astype(np.int32)
+    cu.coeffs.pop((COLOR_V, *rel), None)
+    return {COLOR_U: rec_u, COLOR_V: rec_v}
+
+
+def _try_lfnst(cu, src_block, pred, q0, rec0, cbf0, qp_scaled, bd,
+               qp, signhide, dep_quant=False):
+    """Evaluate lfnst_idx 1/2 vs 0 for one intra TU (DCT2 primary);
+    sets cu.lfnst_idx and returns the winning (q, rec, cbf).
+    The SSD + level-mass proxy mirrors the MTS candidate costing."""
+    from ..ops.lfnst import fwd_lfnst, inv_lfnst
+    from ..ops.scan import coeff_scan_table
+    from .partition import qp_to_lambda
+    lam = qp_to_lambda(qp)
+    b64 = src_block.astype(np.int64)
+    best = (float(((b64 - rec0) ** 2).sum())
+            + lam * 3.0 * float(np.abs(q0).sum()), q0, rec0, cbf0, 0)
+    resid = b64 - pred.astype(np.int64)
+    coef = fwd_transform_2d(resid, bitdepth=bd)
+    h2, w2 = coef.shape
+    lw, lh = w2.bit_length() - 1, h2.bit_length() - 1
+    scan = coeff_scan_table(lw, lh)
+    max_pos = 7 if (w2, h2) in ((4, 4), (8, 8)) else 15
+    for idx in (1, 2):
+        c2 = fwd_lfnst(coef.astype(np.int64), cu.intra_mode,
+                       cu.w.bit_length() - 1, cu.h.bit_length() - 1, idx)
+        if dep_quant:
+            from ..ops.depquant import dequant_dep, quant_dep
+            ql = quant_dep(c2, qp_scaled, bd)
+        else:
+            ql = quant(c2, qp_scaled, bd, signhide=signhide)
+        nz = np.nonzero(ql.reshape(-1)[scan])[0]
+        if len(nz) == 0 or nz[-1] < 1 or nz[-1] > max_pos:
+            continue            # not signalable with this lfnst index
+        dq = dequant_dep(ql, qp_scaled, bd) if dep_quant \
+            else dequant(ql, qp_scaled, bd)
+        di = inv_lfnst(dq.astype(np.int64), cu.intra_mode,
+                       cu.w.bit_length() - 1, cu.h.bit_length() - 1,
+                       idx).astype(np.int64)
+        r = inv_transform_2d(np.clip(di, -32768, 32767).astype(np.int16),
+                             bitdepth=bd)
+        rec = np.clip(pred.astype(np.int64) + r, 0,
+                      (1 << bd) - 1).astype(np.int32)
+        cost = float(((b64 - rec) ** 2).sum())             + lam * (3.0 * float(np.abs(ql).sum()) + 2.0)
+        if cost < best[0]:
+            best = (cost, ql.astype(np.int32), rec, 1, idx)
+    cu.lfnst_idx = best[4]
+    return best[1], best[2], best[3]
+
+
+def reconstruct_isp_luma(cu: CuInfo, planes_rec: FramePlanes,
+                         coded_mask: np.ndarray, ctrl: EncoderControl,
+                         qp: int, planes_src: FramePlanes | None = None,
+                         signhide: bool = False, tile_rect=None,
+                         rdoq_lam: float = 0.0) -> float:
+    """Sequential luma reconstruction of an ISP-split intra CU.
+
+    Sub-TUs reconstruct in coding order, each predicting from the previous
+    one's reconstruction (uvg_recon_and_estimate_cost_isp,
+    /root/reference/src/intra.c:1826-1885).  Prediction runs at pred-block
+    granularity (4-wide minimum for vertical splits), transforms at
+    transform-block granularity.  Coefficients are stored under rel key
+    (i, -1).  Returns (ssd, sum_abs_levels) for the encoder-side RD gate
+    ((0.0, 0.0) in decode mode).
+    """
+    from ..ops.isp import isp_split_loc, isp_split_num, isp_tr_types
+    bd = ctrl.bitdepth
+    qp_y = ctrl.luma_qp_scaled(qp)
+    mode = cu.intra_mode
+    dep_q = bool(ctrl.cfg.dep_quant)
+    n_tu = isp_split_num(cu.w, cu.h, cu.isp_mode, True)
+    log2cw, log2ch = cu.w.bit_length() - 1, cu.h.bit_length() - 1
+    ssd = 0.0
+    abs_lv = 0.0
+    pred_block = None
+    px = py = pw = ph = 0
+    for i in range(n_tu):
+        tx, ty, tw, th = isp_split_loc(cu.x, cu.y, cu.w, cu.h, i,
+                                       cu.isp_mode, True)
+        if tx % 4 == 0:
+            # (re)predict at pred-block granularity (intra.c:1824-1826)
+            px, py, pw, ph = isp_split_loc(cu.x, cu.y, cu.w, cu.h, i,
+                                           cu.isp_mode, False)
+            refs = intra_ops.build_reference_isp(
+                planes_rec.y, coded_mask, cu.x, cu.y, cu.w, cu.h,
+                px, py, pw, ph, ctrl.in_width, ctrl.in_height,
+                cu.isp_mode, bd, tile_rect=tile_rect, wpp=ctrl.cfg.wpp)
+            pred_block = intra_ops.predict_intra(
+                mode, pw, ph, refs, bd, isp=True,
+                cu_log2_w=log2cw, cu_log2_h=log2ch)
+        pred = pred_block[ty - py:ty - py + th, tx - px:tx - px + tw]
+        tr_types = isp_tr_types(tw, th, cu.isp_mode, ctrl.cfg.mts,
+                                cu.lfnst_idx)
+        rel = (i, -1)
+        if planes_src is not None:
+            q, rec, cbf = transform_quant_recon(
+                planes_src.y[ty:ty + th, tx:tx + tw], pred, qp_y, bd,
+                signhide=signhide, tr_idx=0,
+                rdoq_lam=rdoq_lam, dep_quant=dep_q,
+                qmat=_qm(ctrl, tw, th, COLOR_Y, True),
+                tr_types=tr_types)
+            cu.cbf[(COLOR_Y, *rel)] = cbf
+            if cbf:
+                cu.coeffs[(COLOR_Y, *rel)] = q
+                abs_lv += float(np.abs(q).sum())
+            b64 = planes_src.y[ty:ty + th, tx:tx + tw].astype(np.int64)
+            ssd += float(((b64 - rec) ** 2).sum())
+        else:
+            if cu.cbf_set(COLOR_Y, *rel):
+                if dep_q:
+                    from ..ops.depquant import dequant_dep
+                    dq = dequant_dep(cu.coeffs[(COLOR_Y, *rel)], qp_y, bd)
+                else:
+                    dq = dequant(cu.coeffs[(COLOR_Y, *rel)], qp_y, bd,
+                                 qmat=_qm(ctrl, tw, th, COLOR_Y, True))
+                if cu.lfnst_idx and min(tw, th) >= 4:
+                    from ..ops.lfnst import inv_lfnst
+                    dq = inv_lfnst(dq.astype(np.int64), mode,
+                                   tw.bit_length() - 1, th.bit_length() - 1,
+                                   cu.lfnst_idx).astype(np.int16)
+                r = inv_transform_2d(dq, type_hor=tr_types[0],
+                                     type_ver=tr_types[1], bitdepth=bd)
+                rec = np.clip(pred.astype(np.int64) + r, 0,
+                              (1 << bd) - 1).astype(np.int32)
+            else:
+                rec = pred
+        planes_rec.y[ty:ty + th, tx:tx + tw] = rec
+    # whole CU is now available as reference
+    coded_mask[cu.y // 4:(cu.y + cu.h) // 4,
+               cu.x // 4:(cu.x + cu.w) // 4] = True
+    return ssd, abs_lv
+
+
+def _isp_eligible(w: int, h: int) -> bool:
+    from ..ops.isp import can_use_isp
+    return can_use_isp(w, h)
+
+
+def try_isp_modes(cu: CuInfo, planes_rec: FramePlanes,
+                  coded_mask: np.ndarray, ctrl: EncoderControl, qp: int,
+                  planes_src: FramePlanes, lam: float,
+                  signhide: bool = False, tile_rect=None,
+                  rdoq_lam: float = 0.0) -> None:
+    """Encoder-side ISP decision for one intra CU whose LUMA has already
+    been reconstructed without ISP: RD-compare NO_ISP vs HOR vs VER and
+    keep the winner in `cu` + the recon plane.
+
+    The cost model is the finalize pass's transform-choice proxy
+    (SSD + lambda * level-mass + signaling-bit deltas), the analog of
+    uvg_recon_and_estimate_cost_isp's SSD + coeff-bit cost
+    (/root/reference/src/intra.c:1826-1885).  Must run BEFORE chroma
+    reconstruction so CCLM sees the final luma.
+    """
+    from ..ops.isp import can_use_isp, isp_split_num
+    if not can_use_isp(cu.w, cu.h) or cu.mip_flag or cu.multi_ref_idx:
+        return
+    x, y, w, h = cu.x, cu.y, cu.w, cu.h
+    src_blk = planes_src.y[y:y + h, x:x + w].astype(np.int64)
+    base_rec = planes_rec.y[y:y + h, x:x + w].copy()
+    base_ssd = float(((src_blk - base_rec) ** 2).sum())
+    q0 = cu.coeffs.get((COLOR_Y, 0, 0))
+    base_lv = float(np.abs(q0).sum()) if q0 is not None else 0.0
+    # isp-off flag ~1 bin; each coded ISP sub-TU adds a cbf bin
+    best_cost = base_ssd + lam * (3.0 * base_lv + 1.0)
+    best = None
+    for m in (1, 2):
+        trial = CuInfo(x, y, w, h, type=CU_INTRA, intra_mode=cu.intra_mode,
+                       isp_mode=m, qp=cu.qp)
+        ssd, lv = reconstruct_isp_luma(
+            trial, planes_rec, coded_mask, ctrl, qp, planes_src,
+            signhide=signhide, tile_rect=tile_rect, rdoq_lam=rdoq_lam)
+        n_tu = isp_split_num(w, h, m, True)
+        cost = ssd + lam * (3.0 * lv + 2.0 + float(n_tu))
+        # all-zero ISP is not signalable: the last sub-TU's cbf is
+        # inferred 1 when the earlier ones are all 0 (search_intra.c:420)
+        if not any(trial.cbf.values()):
+            cost = 1e30
+        if cost < best_cost:
+            best_cost = cost
+            best = (m, {k: v for k, v in trial.cbf.items()},
+                    {k: v for k, v in trial.coeffs.items()},
+                    planes_rec.y[y:y + h, x:x + w].copy())
+        # restore the base reconstruction for the next trial
+        planes_rec.y[y:y + h, x:x + w] = base_rec
+    if best is None:
+        return
+    m, cbf, coeffs, rec = best
+    cu.isp_mode = m
+    cu.tr_idx = 0
+    cu.lfnst_idx = 0
+    cu.cbf.pop((COLOR_Y, 0, 0), None)
+    cu.coeffs.pop((COLOR_Y, 0, 0), None)
+    cu.cbf.update(cbf)
+    cu.coeffs.update(coeffs)
+    planes_rec.y[y:y + h, x:x + w] = rec
+
+
+def reconstruct_intra_cu(cu: CuInfo, planes_rec: FramePlanes,
+                         coded_mask: np.ndarray, ctrl: EncoderControl,
+                         qp: int,
+                         planes_src: FramePlanes | None = None,
+                         signhide: bool = False,
+                         tile_rect=None, rdoq_lam: float = 0.0,
+                         chroma_search: bool = False,
+                         jccr_sign: int = 0,
+                         parts: str = "both",
+                         lmcs=None, chroma_mask=None) -> None:
+    """Predict + (inverse-)transform one intra CU, updating recon planes.
+
+    chroma_mask: separate chroma availability mask for the dual-tree
+    chroma pass (chroma references follow the CHROMA coding order, not
+    the already-complete luma mask; CCLM keeps using coded_mask for the
+    collocated-luma availability).
+
+    Encoder mode: planes_src given -> computes coefficients + cbf into `cu`.
+    Decoder mode: planes_src None -> uses cu.coeffs to reconstruct.
+    Handles the implicit TU split for CUs larger than TR_MAX_WIDTH.
+    tile_rect: luma-pixel tile bounds for reference availability (tiles).
+    lmcs: LmcsFrameCtx when reshaping is active — luma planes are in the
+    mapped domain and chroma residuals take the per-LCU scale.
+    """
+    # local dual tree: this CU is luma-only; the deferred chroma of the
+    # area (attached to the LAST CU as chroma_cu) reconstructs after it
+    if cu.local_dual and parts == "both":
+        reconstruct_intra_cu(cu, planes_rec, coded_mask, ctrl, qp,
+                             planes_src, signhide=signhide,
+                             tile_rect=tile_rect, rdoq_lam=rdoq_lam,
+                             chroma_search=chroma_search,
+                             jccr_sign=jccr_sign, parts="luma", lmcs=lmcs)
+        if cu.chroma_cu is not None:
+            reconstruct_intra_cu(cu.chroma_cu, planes_rec, coded_mask,
+                                 ctrl, qp, planes_src, signhide=signhide,
+                                 tile_rect=tile_rect, rdoq_lam=rdoq_lam,
+                                 jccr_sign=jccr_sign, parts="chroma",
+                                 lmcs=lmcs)
+        return
+    if cu.isp_mode and parts != "chroma":
+        # ISP: luma reconstructs as 2/4 sequential sub-TUs; chroma (if any)
+        # stays a single CU-level TU and follows below
+        reconstruct_isp_luma(cu, planes_rec, coded_mask, ctrl, qp,
+                             planes_src, signhide=signhide,
+                             tile_rect=tile_rect, rdoq_lam=rdoq_lam)
+        if parts == "luma" or ctrl.chroma_format == 0:
+            return
+        parts = "chroma"
+    bd = ctrl.bitdepth
+    cmask = chroma_mask if chroma_mask is not None else coded_mask
+    lmcs_adj = lmcs.adj(cu.x, cu.y) if lmcs is not None \
+        and lmcs.chroma_adj and ctrl.chroma_format != 0 \
+        and parts != "luma" else 0
+    dep_q = bool(ctrl.cfg.dep_quant)
+    tile_rect_c = None
+    if tile_rect is not None:
+        tile_rect_c = tuple(v >> 1 for v in tile_rect)
+    # luma TUs in z-order, then chroma (chroma is a single TU per 32x32 for
+    # 64x64 CUs, matching the per-TU recursion order of the syntax)
+    n_t = max(1, cu.w // TR_MAX_WIDTH)
+    tw = min(cu.w, TR_MAX_WIDTH)
+    th = min(cu.h, TR_MAX_WIDTH)
+    qp_y = ctrl.luma_qp_scaled(qp)
+    qp_c = ctrl.chroma_qp_scaled(qp)
+    for ty_i in range(max(1, cu.h // TR_MAX_WIDTH)):
+        for tx_i in range(n_t):
+            tx, ty = cu.x + tx_i * TR_MAX_WIDTH, cu.y + ty_i * TR_MAX_WIDTH
+            rel = (tx_i, ty_i)
+            if parts != "chroma":   # skipped by the dual-tree chroma pass
+                # --- luma ---
+                refs = intra_ops.build_reference(
+                    planes_rec.y, coded_mask, tx, ty, tw, th,
+                    ctrl.in_width, ctrl.in_height, bd, tile_rect=tile_rect,
+                    wpp=ctrl.cfg.wpp)
+                if cu.mip_flag:
+                    from ..ops.mip import mip_predict_np
+                    pred = mip_predict_np(refs.top[1:1 + tw], refs.left[1:1 + th],
+                                          tw, th, cu.intra_mode,
+                                          cu.mip_transposed, bd)
+                elif cu.multi_ref_idx:
+                    refs_k = intra_ops.build_reference_mrl(
+                        planes_rec.y, coded_mask, tx, ty, tw, th,
+                        ctrl.in_width, ctrl.in_height, bd,
+                        cu.multi_ref_idx,
+                        inv_lut=(lmcs.luts.inv_lut
+                                 if lmcs is not None else None),
+                        tile_rect=tile_rect)
+                    pred = intra_ops.predict_intra_mrl(
+                        cu.intra_mode, tw, th, refs_k, cu.multi_ref_idx, bd)
+                else:
+                    pred = _predict_tables(cu.intra_mode, tw, th, refs, bd,
+                                           False, cu.w.bit_length() - 1,
+                                           cu.h.bit_length() - 1)
+                if planes_src is not None:
+                    cfg_ = ctrl.cfg
+                    if cfg_.trskip_enable and cu.tr_idx == 0 \
+                            and tw <= (1 << cfg_.trskip_max_size) \
+                            and th <= (1 << cfg_.trskip_max_size):
+                        # TS vs DCT2: pick by SSD + level-mass bit proxy
+                        blk = planes_src.y[ty:ty + th, tx:tx + tw]
+                        qd, rd_, cd = transform_quant_recon(
+                            blk, pred, qp_y, bd, signhide=signhide,
+                            tr_idx=0, rdoq_lam=rdoq_lam, dep_quant=dep_q)
+                        qt, rt, ct = transform_quant_recon(
+                            blk, pred, qp_y, bd, signhide=False,
+                            tr_idx=1, rdoq_lam=0.0)
+                        lam_ = rdoq_lam if rdoq_lam > 0 \
+                        else 0.57 * 2.0 ** ((qp - 12) / 3.0)
+                        b64 = blk.astype(np.int64)
+                        cost_d = float(((b64 - rd_) ** 2).sum()) + lam_ * 3.0 * (
+                            float(np.abs(qd).sum()) if qd is not None else 0.0)
+                        cost_t = float(((b64 - rt) ** 2).sum()) + lam_ * (
+                            3.5 * float(np.abs(qt).sum()) + 1.0
+                            if qt is not None else 1.0)
+                        if cost_t < cost_d:
+                            q, rec, cbf = qt, rt, ct
+                            cu.tr_idx = 1
+                        else:
+                            q, rec, cbf = qd, rd_, cd
+                    else:
+                        q, rec, cbf = transform_quant_recon(
+                            planes_src.y[ty:ty + th, tx:tx + tw], pred, qp_y,
+                            bd, signhide=signhide, tr_idx=cu.tr_idx,
+                            rdoq_lam=rdoq_lam, dep_quant=dep_q,
+                            qmat=_qm(ctrl, tw, th, COLOR_Y, True))
+                    if ctrl.cfg.lfnst and n_t == 1 and cu.h <= TR_MAX_WIDTH \
+                            and cu.tr_idx == 0 and cbf and not cu.mip_flag:
+                        cu._lfnst_fallback = (q, rec, cbf)
+                        q, rec, cbf = _try_lfnst(
+                            cu, planes_src.y[ty:ty + th, tx:tx + tw], pred,
+                            q, rec, cbf, qp_y, bd, qp, signhide,
+                            dep_quant=dep_q)
+                    cu.cbf[(COLOR_Y, *rel)] = cbf
+                    if cbf:
+                        cu.coeffs[(COLOR_Y, *rel)] = q
+                else:
+                    if cu.cbf_set(COLOR_Y, *rel):
+                        if cu.tr_idx == 1:     # transform skip
+                            r = dequant(cu.coeffs[(COLOR_Y, *rel)], qp_y, bd,
+                                        transform_skip=True)
+                        else:
+                            from ..ops.rd_cost import MTS_PAIRS
+                            thh, tvv = MTS_PAIRS.get(cu.tr_idx, (0, 0))
+                            if dep_q:
+                                from ..ops.depquant import dequant_dep
+                                dq = dequant_dep(cu.coeffs[(COLOR_Y, *rel)],
+                                                 qp_y, bd)
+                            else:
+                                dq = dequant(cu.coeffs[(COLOR_Y, *rel)], qp_y,
+                                             bd, qmat=_qm(ctrl, tw, th,
+                                                          COLOR_Y, True))
+                            if cu.lfnst_idx:
+                                from ..ops.lfnst import inv_lfnst
+                                dq = inv_lfnst(dq.astype(np.int64),
+                                               cu.intra_mode,
+                                               cu.w.bit_length() - 1,
+                                               cu.h.bit_length() - 1,
+                                               cu.lfnst_idx).astype(np.int16)
+                            r = inv_transform_2d(dq, type_hor=thh, type_ver=tvv,
+                                                 bitdepth=bd)
+                        rec = np.clip(pred.astype(np.int64) + r, 0,
+                                      (1 << bd) - 1).astype(np.int32)
+                    else:
+                        rec = pred
+                planes_rec.y[ty:ty + th, tx:tx + tw] = rec
+                # luma part of this TU is now available as reference
+                coded_mask[ty // 4:(ty + th) // 4, tx // 4:(tx + tw) // 4] = True
+
+            # --- chroma (4:2:0) ---
+            if ctrl.chroma_format == 0 or parts == "luma":
+                continue
+            cx, cy = tx >> 1, ty >> 1
+            cw, ch = tw >> 1, th >> 1
+            if planes_src is not None and chroma_search and rel == (0, 0):
+                # CU-level decision (one chroma mode per CU); multi-TU CUs
+                # decide on the first TU — its collocated luma is already
+                # reconstructed — and the later TUs inherit the mode
+                # chroma mode decision: DM vs the three CCLM models
+                # (search_intra.c chroma mode loop, prediction-SSD based)
+                from ..ops.cclm import predict_cclm
+                dm = 0 if cu.mip_flag else cu.intra_mode
+                cands = [dm, 81, 82, 83]
+                bias = {dm: 0.0, 81: 8.0, 82: 16.0, 83: 16.0}
+                best_m, best_cost = dm, None
+                for m in cands:
+                    sse = 0.0
+                    for color, plane_rec, plane_src in (
+                            (COLOR_U, planes_rec.u, planes_src.u),
+                            (COLOR_V, planes_rec.v, planes_src.v)):
+                        refs_c = intra_ops.build_reference(
+                            plane_rec, cmask, cx, cy, cw, ch,
+                            ctrl.in_width >> 1, ctrl.in_height >> 1, bd,
+                            is_chroma=True, tile_rect=tile_rect_c,
+                            wpp=ctrl.cfg.wpp)
+                        if m >= 81:
+                            pr = predict_cclm(
+                                m, planes_rec.y, refs_c, coded_mask,
+                                cx, cy, cw, ch, ctrl.in_width,
+                                ctrl.in_height, bd, wpp=ctrl.cfg.wpp)
+                        else:
+                            pr = _predict_tables(m, cw, ch, refs_c, bd, True)
+                        blk = plane_src[cy:cy + ch, cx:cx + cw]
+                        sse += float(((blk - pr.astype(np.int64)) ** 2).sum())
+                    sse += bias[m]
+                    if best_cost is None or sse < best_cost:
+                        best_m, best_cost = m, sse
+                cu.intra_mode_chroma = best_m
+            mode_c = cu.intra_mode_chroma
+            csign = -1 if jccr_sign else 1
+            jccr_preds = {}
+            jccr_srcs = {}
+            joint_r = None
+            cu._jccr_sep_rec = {}
+            for color, plane_rec, plane_src in (
+                    (COLOR_U, planes_rec.u,
+                     planes_src.u if planes_src else None),
+                    (COLOR_V, planes_rec.v,
+                     planes_src.v if planes_src else None)):
+                refs_c = intra_ops.build_reference(
+                    plane_rec, cmask, cx, cy, cw, ch,
+                    ctrl.in_width >> 1, ctrl.in_height >> 1, bd,
+                    is_chroma=True, tile_rect=tile_rect_c,
+                    wpp=ctrl.cfg.wpp)
+                if mode_c >= 81:
+                    from ..ops.cclm import predict_cclm
+                    pred_c = predict_cclm(
+                        mode_c, planes_rec.y, refs_c, coded_mask,
+                        cx, cy, cw, ch, ctrl.in_width, ctrl.in_height, bd,
+                        wpp=ctrl.cfg.wpp)
+                else:
+                    pred_c = _predict_tables(mode_c, cw, ch, refs_c, bd,
+                                             True)
+                if planes_src is not None:
+                    q, rec_c, cbf = transform_quant_recon(
+                        plane_src[cy:cy + ch, cx:cx + cw], pred_c, qp_c, bd,
+                        signhide=signhide, rdoq_lam=rdoq_lam,
+                        dep_quant=dep_q,
+                        qmat=_qm(ctrl, cw, ch, color, True),
+                        lmcs_adj=lmcs_adj)
+                    cu.cbf[(color, *rel)] = cbf
+                    if cbf:
+                        cu.coeffs[(color, *rel)] = q
+                    jccr_preds[color] = pred_c
+                    jccr_srcs[color] = plane_src[cy:cy + ch,
+                                                 cx:cx + cw].astype(np.int64)
+                    cu._jccr_sep_rec[color] = rec_c
+                else:
+                    jmode = cu.joint_cb_cr.get(rel, 0)
+                    if jmode:
+                        # joint Cb-Cr (VVC 8.7.2): one coded residual in
+                        # the Cb TU (modes 1-2) or Cr TU (mode 3); the
+                        # other component derives via CSign (and >>1 for
+                        # the one-cbf modes)
+                        if joint_r is None:
+                            jcol = COLOR_U if jmode < 3 else COLOR_V
+                            if dep_q:
+                                from ..ops.depquant import dequant_dep
+                                dq = dequant_dep(
+                                    cu.coeffs[(jcol, *rel)], qp_c, bd)
+                            else:
+                                dq = dequant(cu.coeffs[(jcol, *rel)],
+                                             qp_c, bd,
+                                             qmat=_qm(ctrl, cw, ch,
+                                                      jcol, True))
+                            if parts == "chroma" and cu.lfnst_idx and not cu.isp_mode:
+                                from ..ops.lfnst import inv_lfnst
+                                m_l = cu.intra_mode_chroma \
+                                    if cu.intra_mode_chroma < 67 else 0
+                                dq = inv_lfnst(
+                                    dq.astype(np.int64), m_l,
+                                    cw.bit_length() - 1,
+                                    ch.bit_length() - 1,
+                                    cu.lfnst_idx).astype(np.int16)
+                            joint_r = inv_transform_2d(dq, bitdepth=bd)
+                            # joint TUs: no LMCS chroma scaling (the
+                            # reference's cbcr quantizer has it
+                            # commented out, quant-generic.c:372-385)
+                        if jmode == 1:
+                            r = joint_r if color == COLOR_U \
+                                else (csign * joint_r) >> 1
+                        elif jmode == 2:
+                            r = joint_r if color == COLOR_U \
+                                else csign * joint_r
+                        else:
+                            r = joint_r if color == COLOR_V \
+                                else (csign * joint_r) >> 1
+                        rec_c = np.clip(pred_c.astype(np.int64) + r, 0,
+                                        (1 << bd) - 1).astype(np.int32)
+                    elif cu.cbf_set(color, *rel):
+                        if dep_q:
+                            from ..ops.depquant import dequant_dep
+                            dq = dequant_dep(cu.coeffs[(color, *rel)],
+                                             qp_c, bd)
+                        else:
+                            dq = dequant(cu.coeffs[(color, *rel)], qp_c, bd,
+                                         qmat=_qm(ctrl, cw, ch, color, True))
+                        if parts == "chroma" and cu.lfnst_idx and not cu.isp_mode:
+                            from ..ops.lfnst import inv_lfnst
+                            m_l = cu.intra_mode_chroma \
+                                if cu.intra_mode_chroma < 67 else 0
+                            dq = inv_lfnst(dq.astype(np.int64), m_l,
+                                           cw.bit_length() - 1,
+                                           ch.bit_length() - 1,
+                                           cu.lfnst_idx).astype(np.int16)
+                        r = inv_transform_2d(dq, bitdepth=bd)
+                        if lmcs_adj:
+                            from ..ops.lmcs import scale_chroma_residual_inv
+                            r = scale_chroma_residual_inv(r, lmcs_adj, bd)
+                        rec_c = np.clip(pred_c.astype(np.int64) + r, 0,
+                                        (1 << bd) - 1).astype(np.int32)
+                    else:
+                        rec_c = pred_c
+                plane_rec[cy:cy + ch, cx:cx + cw] = rec_c
+
+            if planes_src is not None and ctrl.cfg.jccr \
+                    and COLOR_V in jccr_preds:
+                from .partition import qp_to_lambda
+                jr = _try_jccr(cu, rel, jccr_preds, jccr_srcs, qp_c, bd,
+                               qp_to_lambda(qp), csign, signhide=signhide,
+                               lmcs_adj=lmcs_adj, dep_quant=dep_q)
+                if jr is not None:
+                    planes_rec.u[cy:cy + ch, cx:cx + cw] = jr[COLOR_U]
+                    planes_rec.v[cy:cy + ch, cx:cx + cw] = jr[COLOR_V]
+
+            if chroma_mask is not None:
+                # dual-tree chroma pass: this TU's area is now available
+                # as a chroma reference
+                chroma_mask[ty // 4:(ty + th) // 4,
+                            tx // 4:(tx + tw) // 4] = True
+
+            # LFNST signalability re-check: chroma coefficients of this CU
+            # must not violate the last-position constraint; if they do,
+            # fall back to the plain DCT2 result (same pattern as the MTS
+            # fallback in the finalize pass)
+            if planes_src is not None and cu.lfnst_idx:
+                from ..hls.coding_tree import accumulate_lfnst_flags, \
+                    lfnst_allowed
+                accumulate_lfnst_flags(cu)
+                if not lfnst_allowed(ctrl.cfg, cu):
+                    q0, rec0, cbf0 = cu._lfnst_fallback
+                    cu.lfnst_idx = 0
+                    cu.cbf[(COLOR_Y, *rel)] = cbf0
+                    if cbf0:
+                        cu.coeffs[(COLOR_Y, *rel)] = q0
+                    elif (COLOR_Y, *rel) in cu.coeffs:
+                        del cu.coeffs[(COLOR_Y, *rel)]
+                    planes_rec.y[ty:ty + th, tx:tx + tw] = rec0
+
+
+def reconstruct_inter_cu(cu: CuInfo, planes_rec: FramePlanes,
+                         coded_mask: np.ndarray, ctrl: EncoderControl,
+                         qp: int, refs: list,
+                         planes_src: FramePlanes | None = None,
+                         signhide: bool = False,
+                         rdoq_lam: float = 0.0,
+                         lmcs=None) -> None:
+    """Motion compensation + residual round-trip for one inter CU
+    (uvg_inter_recon_cu, inter.c:604). Encoder mode computes coeffs/cbf;
+    decoder mode reconstructs from cu.coeffs.
+    lmcs: LmcsFrameCtx — references are original-domain, so the luma MC
+    prediction is forward-mapped before the (mapped-domain) residual, and
+    chroma residuals take the per-LCU scale."""
+    from ..ops.inter import mc_chroma, mc_chroma_bi, mc_luma, mc_luma_bi
+    bd = ctrl.bitdepth
+    lmcs_adj = lmcs.adj(cu.x, cu.y) if lmcs is not None \
+        and lmcs.chroma_adj and ctrl.chroma_format != 0 else 0
+    if isinstance(refs, list):
+        refs = RefLists(l0=refs, l1=refs, pocs0=[], pocs1=[])
+    bipred = cu.mv_dir == 3
+    if bipred:
+        ref = refs.l0[cu.mv_ref[0]]
+        ref1 = refs.l1[cu.mv_ref[1]]
+        mv, mv1 = cu.mv[0], cu.mv[1]
+    elif cu.mv_dir == 2:
+        ref = refs.l1[cu.mv_ref[1]]
+        mv = cu.mv[1]
+    else:
+        ref = refs.l0[cu.mv_ref[0]]
+        mv = cu.mv[0]
+    qp_y = ctrl.luma_qp_scaled(qp)
+    qp_c = ctrl.chroma_qp_scaled(qp)
+    dep_q = bool(ctrl.cfg.dep_quant)
+    if bipred:
+        pred = mc_luma_bi(ref.y, ref1.y, cu.x, cu.y, cu.w, cu.h, mv, mv1, bd)
+    else:
+        pred = mc_luma(ref.y, cu.x, cu.y, cu.w, cu.h, mv, bd)
+    if lmcs is not None:
+        # fwdMap the inter luma prediction into the reshaped domain
+        # (inter.c inter_recon under sliceReshaperEnableFlag)
+        pred = lmcs.luts.fwd_lut[pred]
+    if planes_src is not None:
+        q, rec, cbf = transform_quant_recon(
+            planes_src.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w], pred, qp_y, bd,
+            is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
+            dep_quant=dep_q, qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
+        cu.cbf[(COLOR_Y, 0, 0)] = cbf
+        if cbf:
+            cu.coeffs[(COLOR_Y, 0, 0)] = q
+    else:
+        if cu.cbf_set(COLOR_Y):
+            if dep_q:
+                from ..ops.depquant import dequant_dep
+                dq = dequant_dep(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd)
+            else:
+                dq = dequant(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd,
+                             qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
+            r = inv_transform_2d(dq, bitdepth=bd)
+            rec = np.clip(pred.astype(np.int64) + r, 0,
+                          (1 << bd) - 1).astype(np.int32)
+        else:
+            rec = pred
+    planes_rec.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w] = rec
+    coded_mask[cu.y // 4:(cu.y + cu.h) // 4,
+               cu.x // 4:(cu.x + cu.w) // 4] = True
+
+    if ctrl.chroma_format == 0:
+        return
+    cx, cy, cw, ch = cu.x >> 1, cu.y >> 1, cu.w >> 1, cu.h >> 1
+    for color, plane_rec, plane_ref, plane_src in (
+            (COLOR_U, planes_rec.u, ref.u,
+             planes_src.u if planes_src else None),
+            (COLOR_V, planes_rec.v, ref.v,
+             planes_src.v if planes_src else None)):
+        if bipred:
+            plane_ref1 = ref1.u if color == COLOR_U else ref1.v
+            pred_c = mc_chroma_bi(plane_ref, plane_ref1, cx, cy, cw, ch,
+                                  mv, mv1, bd)
+        else:
+            pred_c = mc_chroma(plane_ref, cx, cy, cw, ch, mv, bd)
+        if planes_src is not None:
+            q, rec_c, cbf = transform_quant_recon(
+                plane_src[cy:cy + ch, cx:cx + cw], pred_c, qp_c, bd,
+                is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
+                dep_quant=dep_q, qmat=_qm(ctrl, cw, ch, color, False),
+                lmcs_adj=lmcs_adj)
+            cu.cbf[(color, 0, 0)] = cbf
+            if cbf:
+                cu.coeffs[(color, 0, 0)] = q
+        else:
+            if cu.cbf_set(color):
+                if dep_q:
+                    from ..ops.depquant import dequant_dep
+                    dq = dequant_dep(cu.coeffs[(color, 0, 0)], qp_c, bd)
+                else:
+                    dq = dequant(cu.coeffs[(color, 0, 0)], qp_c, bd,
+                                 qmat=_qm(ctrl, cw, ch, color, False))
+                r = inv_transform_2d(dq, bitdepth=bd)
+                if lmcs_adj:
+                    from ..ops.lmcs import scale_chroma_residual_inv
+                    r = scale_chroma_residual_inv(r, lmcs_adj, bd)
+                rec_c = np.clip(pred_c.astype(np.int64) + r, 0,
+                                (1 << bd) - 1).astype(np.int32)
+            else:
+                rec_c = pred_c
+        plane_rec[cy:cy + ch, cx:cx + cw] = rec_c
+
+
+def reconstruct_ibc_cu(cu: CuInfo, planes_rec: FramePlanes,
+                       coded_mask: np.ndarray, ctrl: EncoderControl,
+                       qp: int,
+                       planes_src: FramePlanes | None = None,
+                       signhide: bool = False,
+                       rdoq_lam: float = 0.0) -> None:
+    """Intra-block-copy CU: prediction is a pure pixel copy from the
+    current picture's pre-filter reconstruction at the block vector
+    (ibc_recon_cu, /root/reference/src/inter.c:614-676 — the reference's
+    rolling ibc_buffer holds exactly the unfiltered recon our rec planes
+    hold during CU recon).  Chroma copies at truncated half coordinates
+    ((x+bv)/2 integer division), matching the reference's blit addressing.
+    Residual path is identical to an inter CU."""
+    bd = ctrl.bitdepth
+    bvx, bvy = cu.mv[0][0] >> 4, cu.mv[0][1] >> 4      # full-pel
+    sx, sy = cu.x + bvx, cu.y + bvy
+    pred = planes_rec.y[sy:sy + cu.h, sx:sx + cu.w].copy()
+    qp_y = ctrl.luma_qp_scaled(qp)
+    qp_c = ctrl.chroma_qp_scaled(qp)
+    dep_q = bool(ctrl.cfg.dep_quant)
+    if planes_src is not None:
+        q, rec, cbf = transform_quant_recon(
+            planes_src.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w], pred, qp_y, bd,
+            is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
+            dep_quant=dep_q, qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
+        cu.cbf[(COLOR_Y, 0, 0)] = cbf
+        if cbf:
+            cu.coeffs[(COLOR_Y, 0, 0)] = q
+    else:
+        if cu.cbf_set(COLOR_Y):
+            if dep_q:
+                from ..ops.depquant import dequant_dep
+                dq = dequant_dep(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd)
+            else:
+                dq = dequant(cu.coeffs[(COLOR_Y, 0, 0)], qp_y, bd,
+                             qmat=_qm(ctrl, cu.w, cu.h, COLOR_Y, False))
+            r = inv_transform_2d(dq, bitdepth=bd)
+            rec = np.clip(pred.astype(np.int64) + r, 0,
+                          (1 << bd) - 1).astype(np.int32)
+        else:
+            rec = pred
+    planes_rec.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w] = rec
+    coded_mask[cu.y // 4:(cu.y + cu.h) // 4,
+               cu.x // 4:(cu.x + cu.w) // 4] = True
+
+    if ctrl.chroma_format == 0:
+        return
+    cx, cy, cw, ch = cu.x >> 1, cu.y >> 1, cu.w >> 1, cu.h >> 1
+    scx, scy = sx // 2, sy // 2
+    for color, plane_rec, plane_src in (
+            (COLOR_U, planes_rec.u, planes_src.u if planes_src else None),
+            (COLOR_V, planes_rec.v, planes_src.v if planes_src else None)):
+        pred_c = plane_rec[scy:scy + ch, scx:scx + cw].copy()
+        if planes_src is not None:
+            q, rec_c, cbf = transform_quant_recon(
+                plane_src[cy:cy + ch, cx:cx + cw], pred_c, qp_c, bd,
+                is_intra_slice=False, signhide=signhide, rdoq_lam=rdoq_lam,
+                dep_quant=dep_q, qmat=_qm(ctrl, cw, ch, color, False))
+            cu.cbf[(color, 0, 0)] = cbf
+            if cbf:
+                cu.coeffs[(color, 0, 0)] = q
+        else:
+            if cu.cbf_set(color):
+                if dep_q:
+                    from ..ops.depquant import dequant_dep
+                    dq = dequant_dep(cu.coeffs[(color, 0, 0)], qp_c, bd)
+                else:
+                    dq = dequant(cu.coeffs[(color, 0, 0)], qp_c, bd,
+                                 qmat=_qm(ctrl, cw, ch, color, False))
+                r = inv_transform_2d(dq, bitdepth=bd)
+                rec_c = np.clip(pred_c.astype(np.int64) + r, 0,
+                                (1 << bd) - 1).astype(np.int32)
+            else:
+                rec_c = pred_c
+        plane_rec[cy:cy + ch, cx:cx + cw] = rec_c
+
+
+class IbcFrameSearch:
+    """Vectorized source-block hash grid for IBC candidate block vectors.
+
+    The vectorized replacement of the reference's per-LCU crc32c hashmap
+    (encoderstate.c:767-803 + hashmap.c): one whole-frame vectorized hash
+    of every 4-aligned 8x8 source block (random-weight dot product in
+    uint64 wraparound arithmetic instead of crc32c — same role, one numpy
+    pass instead of 64k scalar CRCs), bucketed into a dict.  Candidate
+    BVs for a CU are same-hash positions whose full source blocks match
+    exactly, filtered by the normative validity window (ibc_bv_valid);
+    the already-reconstructed constraint is implied by the window.
+    """
+
+    def __init__(self, src: "FramePlanes"):
+        y = np.ascontiguousarray(src.y)
+        H, W = y.shape
+        self.src = src
+        self.ok = H >= 8 and W >= 8
+        if not self.ok:
+            return
+        from numpy.lib.stride_tricks import sliding_window_view
+        rng = np.random.RandomState(0x1bc)
+        weights = rng.randint(1, 1 << 31, size=64).astype(np.uint64) * 2 + 1
+        win = sliding_window_view(y, (8, 8))[::4, ::4]
+        ny, nx = win.shape[0], win.shape[1]
+        flat = win.reshape(ny, nx, 64).astype(np.uint64)
+        hashes = (flat * weights).sum(axis=-1)
+        self.hash_grid = hashes
+        buckets: dict = {}
+        ys, xs = np.mgrid[0:ny, 0:nx]
+        for hv, yy, xx in zip(hashes.ravel(), ys.ravel() * 4,
+                              xs.ravel() * 4):
+            buckets.setdefault(int(hv), []).append((int(xx), int(yy)))
+        self.buckets = buckets
+
+    def candidates(self, x: int, y: int, w: int, h: int,
+                   max_cands: int = 8) -> list:
+        """Valid BVs whose source blocks match the CU's source exactly."""
+        if not self.ok or x % 4 or y % 4:
+            return []
+        key = int(self.hash_grid[y // 4, x // 4])
+        out = []
+        blk = self.src.y[y:y + h, x:x + w]
+        for (cx, cy) in self.buckets.get(key, ()):
+            bvx, bvy = cx - x, cy - y
+            if bvx == 0 and bvy == 0:
+                continue
+            if not ibc_bv_valid(x, y, w, h, bvx, bvy):
+                continue
+            cand = self.src.y[cy:cy + h, cx:cx + w]
+            if cand.shape != blk.shape or not np.array_equal(cand, blk):
+                continue
+            out.append((bvx, bvy))
+            if len(out) >= max_cands:
+                break
+        return out
+
+
+def try_ibc_cu(cu: CuInfo, planes_rec: FramePlanes, coded_mask: np.ndarray,
+               ctrl: EncoderControl, qp: int, planes_src: FramePlanes,
+               lam: float, ibc_search: "IbcFrameSearch", cu_map, hmvp_ibc,
+               signhide: bool = False, rdoq_lam: float = 0.0) -> None:
+    """RD-compare the committed intra reconstruction of `cu` against IBC
+    candidates (hash matches + merge candidates); keep the winner in `cu`
+    and the rec planes.  The analog of uvg_search_cu_ibc's candidate +
+    local-cost loop (/root/reference/src/search_ibc.c:92-1355) in the
+    two-phase design: runs in the sequential finalize where the true
+    reconstruction is available."""
+    from ..ops.me import mv_bits_est
+    from .inter_cand import derive_ibc_merge_list
+    x, y, w, h = cu.x, cu.y, cu.w, cu.h
+    # single-TU residual path: IBC CUs above the 32x32 max TU would need
+    # the implicit transform split (reconstruct_ibc_cu codes one TU)
+    if w > 32 or h > 32 or cu.local_dual:
+        return
+    merge_cands = derive_ibc_merge_list(cu_map, hmvp_ibc, x, y, w, h)
+    cands: list = []
+    for i, bv in enumerate(merge_cands):
+        bvi = (bv[0] >> 4, bv[1] >> 4)
+        if bvi == (0, 0) or not ibc_bv_valid(x, y, w, h, *bvi):
+            continue
+        if all(c[0] != bvi for c in cands):
+            cands.append((bvi, i))
+    for bvi in ibc_search.candidates(x, y, w, h):
+        if all(c[0] != bvi for c in cands):
+            mi = next((i for i, mc in enumerate(merge_cands)
+                       if (mc[0] >> 4, mc[1] >> 4) == bvi), None)
+            cands.append((bvi, mi))
+    if not cands:
+        # no hash/merge seeds: start the local walk from the nearest
+        # valid whole-block displacements (the reference's IBC ME also
+        # searches without hash hits, search_ibc.c:300-700)
+        for seed in ((-w, 0), (0, -h)):
+            if ibc_bv_valid(x, y, w, h, *seed):
+                cands.append((seed, None))
+    if not cands:
+        return
+    # screen candidates by luma SAD against the reconstruction
+    blk = planes_src.y[y:y + h, x:x + w].astype(np.int64)
+    best = None
+    for bvi, mi in cands:
+        sx, sy = x + bvi[0], y + bvi[1]
+        sad = float(np.abs(blk - planes_rec.y[sy:sy + h, sx:sx + w]).sum())
+        bits = (1.0 + (mi if mi is not None else 0)) if mi is not None \
+            else (6.0 + mv_bits_est(bvi[0]) + mv_bits_est(bvi[1]))
+        cost = sad + np.sqrt(lam) * bits
+        if best is None or cost < best[0]:
+            best = (cost, bvi, mi, bits)
+    _cost0, bvi, mi, bv_bits = best
+
+    # local full-pel BV refinement around the seed (the hexagon/diamond
+    # walk of uvg_ibc_search, search_ibc.c:300-700): SAD + AMVP-bit cost
+    # over valid BVs, iterate while improving
+    lam_sqrt = float(np.sqrt(lam))
+    cur_cost = float(best[0])
+    DIRS = ((1, 0), (-1, 0), (0, 1), (0, -1),
+            (1, 1), (-1, -1), (1, -1), (-1, 1))
+    for _step in range(16):
+        improved = False
+        for (dx, dy) in DIRS:
+            b2 = (bvi[0] + dx, bvi[1] + dy)
+            if b2 == (0, 0) or not ibc_bv_valid(x, y, w, h, *b2):
+                continue
+            sx2, sy2 = x + b2[0], y + b2[1]
+            sad2 = float(np.abs(
+                blk - planes_rec.y[sy2:sy2 + h, sx2:sx2 + w]).sum())
+            bits2 = 6.0 + mv_bits_est(b2[0]) + mv_bits_est(b2[1])
+            c2 = sad2 + lam_sqrt * bits2
+            if c2 < cur_cost:
+                cur_cost, bvi, bv_bits = c2, b2, bits2
+                improved = True
+        if not improved:
+            break
+    # merge index of the (possibly refined) BV, if any candidate matches
+    mi = next((i for i, mc in enumerate(merge_cands)
+               if (mc[0] >> 4, mc[1] >> 4) == bvi), None)
+    if mi is not None:
+        bv_bits = 1.0 + mi
+
+    # committed-intra cost over luma+chroma (SSD + level-mass proxy, the
+    # same currency as the ISP/transform-choice gates)
+    def _cu_ssd_levels(rec):
+        ssd = float(((blk - rec.y[y:y + h, x:x + w]) ** 2).sum())
+        lv = 0.0
+        for k, v in cu.coeffs.items():
+            lv += float(np.abs(v).sum())
+        if ctrl.chroma_format != 0:
+            cx, cy, cw, ch = x >> 1, y >> 1, w >> 1, h >> 1
+            for ps, pr in ((planes_src.u, rec.u), (planes_src.v, rec.v)):
+                ssd += float(((ps[cy:cy + ch, cx:cx + cw].astype(np.int64)
+                               - pr[cy:cy + ch, cx:cx + cw]) ** 2).sum())
+        return ssd, lv
+    intra_ssd, intra_lv = _cu_ssd_levels(planes_rec)
+    intra_cost = intra_ssd + lam * (3.0 * intra_lv + 6.0)
+
+    # IBC trial reconstruction (save/restore the rec patches)
+    cx, cy, cw, ch = x >> 1, y >> 1, w >> 1, h >> 1
+    save_y = planes_rec.y[y:y + h, x:x + w].copy()
+    save_u = planes_rec.u[cy:cy + ch, cx:cx + cw].copy() \
+        if ctrl.chroma_format != 0 else None
+    save_v = planes_rec.v[cy:cy + ch, cx:cx + cw].copy() \
+        if ctrl.chroma_format != 0 else None
+    trial = CuInfo(x, y, w, h, type=CU_IBC, qp=cu.qp,
+                   mv=((bvi[0] << 4, bvi[1] << 4), (0, 0)), mv_dir=1)
+    reconstruct_ibc_cu(trial, planes_rec, coded_mask, ctrl, qp,
+                       planes_src=planes_src, signhide=signhide,
+                       rdoq_lam=rdoq_lam)
+    ibc_ssd, ibc_lv = 0.0, 0.0
+    ssd_l = float(((blk - planes_rec.y[y:y + h, x:x + w]) ** 2).sum())
+    ibc_ssd += ssd_l
+    if ctrl.chroma_format != 0:
+        for ps, pr in ((planes_src.u, planes_rec.u),
+                       (planes_src.v, planes_rec.v)):
+            ibc_ssd += float(((ps[cy:cy + ch, cx:cx + cw].astype(np.int64)
+                               - pr[cy:cy + ch, cx:cx + cw]) ** 2).sum())
+    for v in trial.coeffs.values():
+        ibc_lv += float(np.abs(v).sum())
+    ibc_cost = ibc_ssd + lam * (3.0 * ibc_lv + bv_bits + 2.0)
+    if ibc_cost >= intra_cost:
+        planes_rec.y[y:y + h, x:x + w] = save_y
+        if save_u is not None:
+            planes_rec.u[cy:cy + ch, cx:cx + cw] = save_u
+            planes_rec.v[cy:cy + ch, cx:cx + cw] = save_v
+        return
+    # commit: rewrite cu as the IBC CU
+    cu.type = CU_IBC
+    cu.mv = trial.mv
+    cu.mv_dir = 1
+    cu.mv_ref = (0, 0)
+    cu.skipped = False
+    cu.intra_mode = 0
+    cu.intra_mode_chroma = 0
+    cu.mip_flag = False
+    cu.multi_ref_idx = 0
+    cu.isp_mode = 0
+    cu.lfnst_idx = 0
+    cu.tr_idx = 0
+    cu.cbf = dict(trial.cbf)
+    cu.coeffs = dict(trial.coeffs)
+    cu.joint_cb_cr = {}
+    has_coeffs = any(cu.cbf.values())
+    if mi is not None:
+        cu.merged = True
+        cu.merge_idx = mi
+        cu.skipped = not has_coeffs
+    else:
+        # AMVP: mvp = first two merge candidates; mvd full-pel
+        cu.merged = False
+        best_i, best_b = 0, None
+        for i in range(2):
+            mvp = merge_cands[i]
+            b = mv_bits_est(bvi[0] - (mvp[0] >> 4)) \
+                + mv_bits_est(bvi[1] - (mvp[1] >> 4))
+            if best_b is None or b < best_b:
+                best_i, best_b = i, b
+        mvp = merge_cands[best_i]
+        cu.mv_cand_idx = best_i
+        cu.mvd = ((bvi[0] - (mvp[0] >> 4), bvi[1] - (mvp[1] >> 4)), (0, 0))
+
+
+def ibc_bv_valid(x: int, y: int, w: int, h: int, bvx: int, bvy: int,
+                 lcu: int = 64) -> bool:
+    """intmv_within_ibc_range (/root/reference/src/search_ibc.c:92-101):
+    both components non-positive, source fully left or fully above,
+    vertically inside the current CTU row, horizontally within the
+    rolling buffer window (IBC_BUFFER_WIDTH - LCU = 192 columns), and
+    inside the frame on the left."""
+    if bvx > 0 or bvy > 0:
+        return False
+    if not (-bvy >= h or -bvx >= w):
+        return False
+    if (y % lcu) < -bvy:
+        return False
+    if -bvx > 192:
+        return False
+    if x + bvx < 0:
+        return False
+    return True
+
+
+_JIT_CACHE: dict = {}
+
+
+def _fetch_all(resolvers):
+    """Fetch every resolver's device arrays in ONE host transfer.
+
+    Concatenates all result vectors into a single device array via a
+    cached jitted concat, pulls it with one np.asarray (one transfer),
+    and slices the pieces back out. Falls back to per-array fetches for
+    resolvers without device handles."""
+    import jax
+    import jax.numpy as jnp
+    devs = [getattr(r, "dev", None) for r in resolvers]
+    if any(d is None for d in devs):
+        return [None] * len(resolvers)
+    flat_list = [a for d in devs for a in d]
+    lens = tuple(int(np.prod(a.shape)) for a in flat_list)
+    key = ("fetch", lens)
+    if key not in _JIT_CACHE:
+        _JIT_CACHE[key] = jax.jit(
+            lambda *xs: jnp.concatenate(
+                [x.astype(jnp.float32).ravel() for x in xs]))
+    vals = np.asarray(_JIT_CACHE[key](*flat_list))
+    out = []
+    off = 0
+    for d in devs:
+        pre = []
+        for a in d:
+            n = int(np.prod(a.shape))
+            pre.append(vals[off:off + n])
+            off += n
+        out.append(tuple(pre))
+    return out
+
+# rough per-mode signaling bits for mode preselection (MPM-hit modes are
+# cheaper in reality; refined when CABAC-estimate costing lands)
+_MODE_BITS = np.full(67, 5.0, dtype=np.float32)
+_MODE_BITS[0] = 1.5
+_MODE_BITS[1] = 3.0
+
+
+def _get_search_fns(w: int, h: int, bitdepth: int = 8):
+    """Cached jitted (predict_all_modes, rd_cost) for a block shape."""
+    key = (w, h, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        from ..ops.intra_batch import build_mode_tables, make_predict_fn
+        from ..ops.rd_cost import make_rd_cost_fn
+        tables = build_mode_tables(w, h, bitdepth, False)
+        _JIT_CACHE[key] = (jax.jit(make_predict_fn(tables)),
+                           jax.jit(make_rd_cost_fn(w, h, bitdepth)))
+    return _JIT_CACHE[key]
+
+
+def _get_intra_combo_fn(w: int, h: int, bitdepth: int = 8,
+                        rough: bool = False, grid=None):
+    """Fused refs/blocks gather + mode search + RD-cost in ONE jitted
+    dispatch: the host ships the source plane and block positions;
+    reference construction, prediction and costing all stay on device.
+
+    grid: static (x0, y0, sx, sy, gx, gy) position grid — switches to the
+    gather-free input pipeline (strided slices) + matmul prediction; the
+    returned fn then takes (src, qps, lam, wts, mode_bits) with positions
+    baked in. rough=True uses the two-stage rough+refine mode search
+    (~39 predicted modes instead of 67, search_intra.c rough search)."""
+    key = ("combo", w, h, bitdepth, rough, grid)
+    if key not in _JIT_CACHE:
+        import jax
+        from ..ops.intra_batch import (build_mode_tables,
+                                       make_predict_fn,
+                                       make_predict_matmul_fn,
+                                       make_refs_blocks_fn,
+                                       make_refs_blocks_grid_fn)
+        from ..ops.rd_cost import make_rd_cost_fn, make_rough_refine_fn
+        if grid is not None and not rough:
+            tables = build_mode_tables(w, h, bitdepth, False)
+            gather_g = make_refs_blocks_grid_fn(w, h, grid)
+            predict, A_host = make_predict_matmul_fn(tables)
+            rd = make_rd_cost_fn(w, h, bitdepth)
+
+            def combo(src, A, qps, lam, wts, mode_bits):
+                refs, blocks = gather_g(src)
+                return rd(predict(refs, A), blocks, qps, lam, wts,
+                          mode_bits)
+
+            raw = jax.jit(combo)
+            A_dev = _get_pred_matrix(w, h, bitdepth, A_host)
+            _JIT_CACHE[key] = (
+                lambda src, qps, lam, wts, mode_bits:
+                raw(src, A_dev, qps, lam, wts, mode_bits))
+            return _JIT_CACHE[key]
+        gather = make_refs_blocks_fn(w, h)
+        if rough:
+            rr = make_rough_refine_fn(w, h, bitdepth)
+
+            def combo(src, xs, ys, qps, lam, wts, mode_bits):
+                refs, blocks = gather(src, xs, ys)
+                return rr(refs, blocks, qps, lam, wts, mode_bits)
+        else:
+            tables = build_mode_tables(w, h, bitdepth, False)
+            predict = make_predict_fn(tables)
+            rd = make_rd_cost_fn(w, h, bitdepth)
+
+            def combo(src, xs, ys, qps, lam, wts, mode_bits):
+                refs, blocks = gather(src, xs, ys)
+                return rd(predict(refs), blocks, qps, lam, wts, mode_bits)
+
+        _JIT_CACHE[key] = jax.jit(combo)
+    return _JIT_CACHE[key]
+
+
+class _GridDescs:
+    """Lazy desc view for a class on a static position grid: builds the
+    {'type': 'intra', ...} dict only for positions the partition DP
+    actually chose (a few hundred of ~8k searched blocks per frame) —
+    eager desc building was a measurable GIL-bound host cost."""
+
+    __slots__ = ("best", "x0", "y0", "sx", "sy", "gx")
+
+    def __init__(self, best, grid):
+        self.best = best
+        self.x0, self.y0, self.sx, self.sy, self.gx, _gy = grid
+
+    def __getitem__(self, xy):
+        x, y = xy
+        k = ((y - self.y0) // self.sy) * self.gx + (x - self.x0) // self.sx
+        return {"type": "intra", "mode": int(self.best[k]), "tr_idx": 0}
+
+
+def _get_pred_matrix(w: int, h: int, bitdepth: int, A_host=None):
+    """Device-resident angular prediction matrix for one shape (shared by
+    every combo variant; device_put once per process)."""
+    key = ("predA", w, h, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        if A_host is None:
+            from ..ops.intra_batch import (build_mode_tables,
+                                           make_predict_matmul_fn)
+            _fn, A_host = make_predict_matmul_fn(
+                build_mode_tables(w, h, bitdepth, False))
+        _JIT_CACHE[key] = jax.device_put(A_host)
+    return _JIT_CACHE[key]
+
+
+def _get_frame_combo_fn(classes, bitdepth: int = 8):
+    """ONE jitted dispatch for the whole frame's intra search: every size
+    class (squares + BT/TT children + TT mids) runs inside a single XLA
+    computation instead of ~3-11 per-class dispatches, each with its own
+    launch and result fetch.
+
+    classes: tuple of (w, h, grid) with grid static
+    (x0, y0, sx, sy, gx, gy). Returns fn(src, qps, lam, wts, mode_bits)
+    -> tuple of (best, rd_cost, satd) per class."""
+    key = ("frame_combo", classes, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        from ..ops.intra_batch import (build_mode_tables,
+                                       make_predict_matmul_fn,
+                                       make_refs_blocks_grid_fn)
+        from ..ops.rd_cost import make_rd_cost_fn
+        parts = []
+        A_devs = []
+        for (w, h, grid) in classes:
+            tables = build_mode_tables(w, h, bitdepth, False)
+            predict, A_host = make_predict_matmul_fn(tables)
+            parts.append((make_refs_blocks_grid_fn(w, h, grid),
+                          predict,
+                          make_rd_cost_fn(w, h, bitdepth)))
+            A_devs.append(_get_pred_matrix(w, h, bitdepth, A_host))
+
+        def frame_combo(src, As, qps, lam, wts, mode_bits):
+            # one flat f32 output vector (best, rd_cost per class): the
+            # host pulls ALL results in a single transfer
+            import jax.numpy as jnp
+            vecs = []
+            src = src.astype(jnp.int32)     # shipped as u8/i16
+            for (gather_g, predict, rd), A in zip(parts, As):
+                refs, blocks = gather_g(src)
+                best, rdc, _satd = rd(predict(refs, A), blocks, qps, lam,
+                                      wts, mode_bits)
+                vecs.append(best.astype(jnp.float32))
+                vecs.append(rdc)
+            return jnp.concatenate(vecs)
+
+        raw = jax.jit(frame_combo)
+        A_tuple = tuple(A_devs)
+        _JIT_CACHE[key] = (
+            lambda src, qps, lam, wts, mode_bits:
+            raw(src, A_tuple, qps, lam, wts, mode_bits))
+        _JIT_CACHE[key + ("raw",)] = (frame_combo,
+                                      tuple(np.asarray(a) for a in A_devs))
+    return _JIT_CACHE[key]
+
+
+def _get_frames_combo_fn(classes, bitdepth: int = 8):
+    """Multi-frame variant of _get_frame_combo_fn: F frames' searches in
+    one dispatch + one fetch, batched along the block axis (same QP for
+    the whole batch). fn(srcs [F,H,W] u8/i16, qp, lam, wts [4],
+    mode_bits) -> [F, total] f32."""
+    key = ("frames_combo", classes, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        import jax.numpy as jnp
+        from ..ops.intra_batch import (build_mode_tables,
+                                       make_predict_matmul_fn,
+                                       make_refs_blocks_grid_fn)
+        from ..ops.rd_cost import make_rd_cost_fn
+        parts = []
+        A_devs = []
+        for (w, h, grid) in classes:
+            tables = build_mode_tables(w, h, bitdepth, False)
+            predict, A_host = make_predict_matmul_fn(tables)
+            parts.append((make_refs_blocks_grid_fn(w, h, grid),
+                          predict,
+                          make_rd_cost_fn(w, h, bitdepth)))
+            A_devs.append(_get_pred_matrix(w, h, bitdepth, A_host))
+
+        def frames_combo(srcs, As, qp, lam, wts, mode_bits):
+            # frames are batched along the BLOCK axis (concat, one big
+            # matmul per class) — vmap over the frame axis de-optimized
+            # the strided-slice input pipeline back into gathers and ran
+            # ~4x slower per frame
+            F = srcs.shape[0]
+            srcs = srcs.astype(jnp.int32)
+            vecs = []
+            for (gather_g, predict, rd), A in zip(parts, As):
+                rb = [gather_g(srcs[f]) for f in range(F)]
+                refs = jnp.concatenate([r for (r, _b) in rb])
+                blocks = jnp.concatenate([b for (_r, b) in rb])
+                best, rdc, _s = rd(predict(refs, A), blocks, qp, lam,
+                                   wts, mode_bits)
+                vecs.append(best.astype(jnp.float32).reshape(F, -1))
+                vecs.append(rdc.reshape(F, -1))
+            return jnp.concatenate(vecs, axis=1)
+
+        raw = jax.jit(frames_combo)
+        A_tuple = tuple(A_devs)
+        _JIT_CACHE[key] = (
+            lambda srcs, qp, lam, wts, mode_bits:
+            raw(srcs, A_tuple, qp, lam, wts, mode_bits))
+    return _JIT_CACHE[key]
+
+
+def _get_inter_frame_combo_fn(classes, inter_classes, n_refs: int,
+                              H: int, W: int, bitdepth: int = 8):
+    """ONE dispatch for an inter frame's whole phase-1 search: intra
+    candidates for every size class (references from the QP-matched
+    pseudo-recon plane) + dense full-pel inter search over every
+    reference for the depth-allowed classes (ops.me_frame) inside a
+    single XLA computation. A per-(class, ref) dispatch pipeline pays a
+    launch, a fetch and a host window-gather loop per call; fused, the
+    whole frame costs one dispatch + one fetch (same argument as
+    _get_frame_combo_fn, reference search flow: search.c search_cu /
+    search_inter.c search_pu_inter per-CU recursion).
+
+    fn(src, pseudo [H, W] u8/i16, refs_pad [R, H+2r, W+2r], pen_sel,
+    bits_tab, qps, lam, wts, mode_bits) -> flat f32: per class
+    (intra best [B], intra cost [B]), then per ref x inter class
+    (mv offset idx [B], rd cost [B])."""
+    key = ("inter_frame", classes, inter_classes, n_refs, H, W, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        import jax.numpy as jnp
+        from ..ops.intra_batch import (build_mode_tables,
+                                       make_predict_matmul_fn,
+                                       make_refs_blocks_grid_fn)
+        from ..ops.me_frame import make_frame_inter_fn
+        from ..ops.rd_cost import make_rd_cost_fn
+        parts = []
+        A_devs = []
+        for (w, h, grid) in classes:
+            tables = build_mode_tables(w, h, bitdepth, False)
+            predict, A_host = make_predict_matmul_fn(tables)
+            parts.append((make_refs_blocks_grid_fn(w, h, grid), predict,
+                          make_rd_cost_fn(w, h, bitdepth)))
+            A_devs.append(_get_pred_matrix(w, h, bitdepth, A_host))
+        inter_fn = make_frame_inter_fn(H, W, inter_classes, n_refs,
+                                       bitdepth)
+
+        def combo(src, pseudo, refs_pad, As, pen_sel, bits_tab, qps,
+                  lam, wts, mode_bits):
+            src_i = src.astype(jnp.int32)
+            pseudo_i = pseudo.astype(jnp.int32)
+            vecs = []
+            for (gather_g, predict, rd), A in zip(parts, As):
+                refs, blocks = gather_g(src_i, pseudo_i)
+                best, rdc, _s = rd(predict(refs, A), blocks, qps, lam,
+                                   wts, mode_bits)
+                vecs.append(best.astype(jnp.float32))
+                vecs.append(rdc)
+            vecs.append(inter_fn(src_i, refs_pad, pen_sel, bits_tab,
+                                 qps, lam, wts))
+            return jnp.concatenate(vecs)
+
+        raw = jax.jit(combo)
+        A_tuple = tuple(A_devs)
+        _JIT_CACHE[key] = (
+            lambda src, pseudo, refs_pad, pen_sel, bits_tab, qps, lam,
+            wts, mode_bits:
+            raw(src, pseudo, refs_pad, A_tuple, pen_sel, bits_tab, qps,
+                lam, wts, mode_bits))
+    return _JIT_CACHE[key]
+
+
+class _InterGridDescs:
+    """Lazy combined intra/inter desc view for one class on a static
+    grid (the inter analog of _GridDescs): per position, either the
+    intra candidate or the best-reference full-pel inter candidate. For
+    B slices, the per-list bests ride along under the private "_l0" /
+    "_l1" keys for the leaf-level bipred check (finalize ignores
+    unknown keys)."""
+
+    __slots__ = ("intra_best", "choice", "mv_idx", "refmap", "l0", "l1",
+                 "n", "x0", "y0", "sx", "sy", "gx")
+
+    def __init__(self, grid, intra_best, choice, mv_idx, refmap,
+                 l0=None, l1=None, r=16):
+        self.intra_best = intra_best
+        self.choice = choice            # [B] -1 = intra, else uniq idx
+        self.mv_idx = mv_idx            # [R, B] full-pel offset indices
+        self.refmap = refmap            # uniq idx -> (list, ref_idx)
+        self.l0, self.l1 = l0, l1       # [B] per-list best uniq idx
+        self.n = 2 * r + 1
+        self.x0, self.y0, self.sx, self.sy, self.gx, _gy = grid
+
+    def _mv(self, u, k):
+        idx = int(self.mv_idx[u, k])
+        return ((idx % self.n - self.n // 2) * 16,
+                (idx // self.n - self.n // 2) * 16)
+
+    def __getitem__(self, xy):
+        x, y = xy
+        k = ((y - self.y0) // self.sy) * self.gx \
+            + (x - self.x0) // self.sx
+        u = int(self.choice[k])
+        if u < 0:
+            return {"type": "intra", "mode": int(self.intra_best[k]),
+                    "tr_idx": 0}
+        lst, rr = self.refmap[u]
+        d = {"type": "inter", "mv": self._mv(u, k), "ref": rr,
+             "list": lst, "_u": u}
+        if self.l0 is not None:
+            u0 = int(self.l0[k])
+            u1 = int(self.l1[k])
+            d["_l0"] = (u0, self._mv(u0, k))
+            d["_l1"] = (u1, self._mv(u1, k))
+        return d
+
+
+class _FlatLeaves:
+    """Flat coding-order leaf array for the native finalize (no CtuNode
+    objects): inl is the [n, 18] int32 input-leaf record array of
+    native.finalize_inter_frame_native."""
+
+    __slots__ = ("inl",)
+
+    def __init__(self, inl):
+        self.inl = inl
+
+
+def _mv_bits_est_np(v: np.ndarray) -> np.ndarray:
+    """Vectorized EG1-style mvd bit estimate (native/inter.cpp
+    mv_bits_est; reference uvg_math golomb cost)."""
+    a = np.abs(v)
+    out = np.ones(a.shape, dtype=np.float64)
+    out[a == 1] = 3.0
+    big = a >= 2
+    if big.any():
+        k = a[big] - 2
+        # length = 3 + 2*floor(log2(k/ + offsets)) pattern: replicate the
+        # loop closed-form via cumulative capacity
+        length = np.full(k.shape, 1, dtype=np.int64)
+        count = np.full(k.shape, 1, dtype=np.int64)
+        rem = k.copy()
+        act = np.ones(k.shape, dtype=bool)
+        while act.any():
+            cap = (np.int64(1) << count[act])
+            go = rem[act] >= cap
+            idx = np.nonzero(act)[0][go]
+            rem[idx] -= (np.int64(1) << count[idx])
+            count[idx] += 1
+            length[idx] += 2
+            act[:] = False
+            act[idx] = True
+        out[big] = 2.0 + (length + count + 1).astype(np.float64)
+    return out
+
+
+def _cabac_bitpos(cabac) -> int:
+    """Approximate written-bit position of a CABAC engine (byte
+    granularity + pending bits) — per-CTU bit accounting for the RC
+    weights (lcu_stats bits, encoderstate.c:944-953)."""
+    try:
+        return int(cabac.lib.ec_num_bytes(cabac.h)) * 8 \
+            + int(cabac.lib.ec_pending_bits(cabac.h))
+    except AttributeError:
+        return len(cabac.stream.buf) * 8 + cabac.stream.cur_bit
+
+
+def _two_stage_qpel(seg_row, pen49) -> int:
+    """Two-stage fractional-offset choice over the 7x7 quarter-pel SATD
+    grid: half-pel square (dq in {-2, 0, 2}) then the quarter-pel
+    neighbors of the winner (the search_frac:1029 structure). f32 cost
+    arithmetic; first-minimum tie-breaks in k order — inter.cpp mirrors
+    this exactly."""
+    best_k = -1
+    best_c = None
+    for dyq in (-2, 0, 2):
+        for dxq in (-2, 0, 2):
+            k = (dyq + 3) * 7 + (dxq + 3)
+            c = np.float32(seg_row[k]) + np.float32(pen49[k])
+            if best_c is None or c < best_c:
+                best_k, best_c = k, c
+    bdx, bdy = best_k % 7 - 3, best_k // 7 - 3
+    for dyq in (bdy - 1, bdy, bdy + 1):
+        if dyq < -3 or dyq > 3:
+            continue
+        for dxq in (bdx - 1, bdx, bdx + 1):
+            if dxq < -3 or dxq > 3:
+                continue
+            k = (dyq + 3) * 7 + (dxq + 3)
+            c = np.float32(seg_row[k]) + np.float32(pen49[k])
+            if c < best_c:
+                best_k, best_c = k, c
+    return best_k
+
+
+class _HostInterDescs:
+    """Desc view for the host-ME path: like _InterGridDescs but with
+    direct full-pel MVs per (ref, block) instead of offset indices."""
+
+    __slots__ = ("intra_best", "choice", "mvx", "mvy", "refmap", "l0",
+                 "l1", "x0", "y0", "sx", "sy", "gx")
+
+    def __init__(self, grid, intra_best, choice, mvx, mvy, refmap,
+                 l0=None, l1=None):
+        self.intra_best = intra_best
+        self.choice = choice            # [B] -1 = intra, else uniq idx
+        self.mvx = mvx                  # [R, B] full-pel
+        self.mvy = mvy
+        self.refmap = refmap
+        self.l0, self.l1 = l0, l1
+        self.x0, self.y0, self.sx, self.sy, self.gx, _gy = grid
+
+    def _mv(self, u, k):
+        return (int(self.mvx[u, k]) * 16, int(self.mvy[u, k]) * 16)
+
+    def __getitem__(self, xy):
+        x, y = xy
+        k = ((y - self.y0) // self.sy) * self.gx \
+            + (x - self.x0) // self.sx
+        u = int(self.choice[k])
+        if u < 0:
+            return {"type": "intra", "mode": int(self.intra_best[k]),
+                    "tr_idx": 0}
+        lst, rr = self.refmap[u]
+        d = {"type": "inter", "mv": self._mv(u, k), "ref": rr,
+             "list": lst, "_u": u}
+        if self.l0 is not None:
+            u0 = int(self.l0[k])
+            u1 = int(self.l1[k])
+            d["_l0"] = (u0, self._mv(u0, k))
+            d["_l1"] = (u1, self._mv(u1, k))
+        return d
+
+
+def _get_pframe_intra_combo_fn(classes, H: int, W: int, bitdepth: int = 8):
+    """Device intra screening for a P/B frame whose ME runs on host:
+    every size class's intra candidates in ONE dispatch, references from
+    the QP-matched pseudo-recon computed ON DEVICE (no host pseudo-recon
+    prep, no reference-plane upload)."""
+    key = ("pframe_intra", classes, H, W, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        import jax.numpy as jnp
+        from ..ops.intra_batch import (build_mode_tables,
+                                       make_predict_matmul_fn,
+                                       make_refs_blocks_grid_fn)
+        from ..ops.pseudo_recon import make_pseudo_recon_fn
+        from ..ops.rd_cost import make_rd_cost_fn
+        parts = []
+        A_devs = []
+        for (w, h, grid) in classes:
+            tables = build_mode_tables(w, h, bitdepth, False)
+            predict, A_host = make_predict_matmul_fn(tables)
+            parts.append((make_refs_blocks_grid_fn(w, h, grid), predict,
+                          make_rd_cost_fn(w, h, bitdepth)))
+            A_devs.append(_get_pred_matrix(w, h, bitdepth, A_host))
+        pseudo_fn = make_pseudo_recon_fn(H, W, bitdepth)
+
+        def combo(src, As, qps, lam, wts, mode_bits):
+            import jax.numpy as jnp
+            src_i = src.astype(jnp.int32)
+            pseudo_i = pseudo_fn(src_i, qps)
+            vecs = []
+            for (gather_g, predict, rd), A in zip(parts, As):
+                refs, blocks = gather_g(src_i, pseudo_i)
+                best, rdc, _s = rd(predict(refs, A), blocks, qps, lam,
+                                   wts, mode_bits)
+                vecs.append(best.astype(jnp.float32))
+                vecs.append(rdc)
+            return jnp.concatenate(vecs)
+
+        raw = jax.jit(combo)
+        A_tuple = tuple(A_devs)
+        _JIT_CACHE[key] = (
+            lambda src, qps, lam, wts, mode_bits:
+            raw(src, A_tuple, qps, lam, wts, mode_bits))
+        # unjitted body + prediction matrices for the mesh-sharded twin
+        # (parallel.mesh shard_maps the same math per 'gop' shard)
+        _JIT_CACHE[key + ("raw",)] = (combo,
+                                      tuple(np.asarray(a) for a in A_devs))
+    return _JIT_CACHE[key]
+
+
+def _get_mip_combo_fn(w: int, h: int, bitdepth: int = 8):
+    """Fused MIP candidate prediction + RD cost (one dispatch)."""
+    key = ("mip", w, h, bitdepth)
+    if key not in _JIT_CACHE:
+        import jax
+        from ..ops.mip import make_mip_preds_fn, mip_mode_count
+        from ..ops.rd_cost import make_rd_cost_fn
+        from ..ops.intra_batch import make_refs_blocks_fn
+        mip_fn = make_mip_preds_fn(w, h, bitdepth)
+        gather = make_refs_blocks_fn(w, h)
+        rd = make_rd_cost_fn(w, h, bitdepth)
+        n_cand = 2 * mip_mode_count(w, h)
+
+        def combo(src, xs, ys, qps, lam, wts, mode_bits):
+            preds = mip_fn(src, xs, ys)
+            _refs, blocks = gather(src, xs, ys)
+            return rd(preds, blocks, qps, lam, wts, mode_bits)
+
+        _JIT_CACHE[key] = (jax.jit(combo), n_cand)
+    return _JIT_CACHE[key]
+
+
+class SliceEncoder:
+    """All-intra encoder for one frame.
+
+    Two search paths:
+    - open-loop (default): batched all-mode prediction + SATD over all CUs
+      of the frame at once from *source* reference pixels (the device
+      path; decisions made in parallel, reconstruction applied after).
+    - closed-loop: sequential per-CU search from reconstructed references
+      (the reference-faithful golden path, ~uvg266 search_intra rough mode).
+    """
+
+    def __init__(self, cfg, ctrl: EncoderControl, open_loop: bool = True,
+                 native_entropy: bool = True):
+        self.cfg = cfg
+        self.ctrl = ctrl
+        self.open_loop = open_loop
+        self.frame_qp = cfg.qp
+        # encode-side temporal ALF APS pool (alf.c:78-102): up to 8
+        # transmitted filter sets, round-robin ids; cleared at IDR
+        self.alf_pool: dict = {}
+        self.alf_next_aps = 0
+        self.native_entropy = False
+        if native_entropy:
+            try:
+                from ..native import get_lib
+                get_lib()
+                self.native_entropy = True
+            except (OSError, subprocess.SubprocessError) as e:
+                warnings.warn(
+                    f"native C++ library unavailable ({e}): falling back "
+                    "to the Python CABAC engine, about 100x slower",
+                    RuntimeWarning, stacklevel=2)
+        # whole-frame native inter finalize (inter.cpp): static tool gates
+        # (per-frame geometry gates checked in encode_frame_gen); when
+        # capable, the fused resolve() defers the qpel refine to C++
+        self._fused_ctx = None
+        self._fetch_exec = None    # result-fetch worker (lazy)
+        self._native_inter = (
+            self.native_entropy and not ctrl.tiles_enable and not cfg.mts
+            and not cfg.rdoq_enable and not cfg.cclm
+            and not cfg.trskip_enable and not cfg.mip and not cfg.jccr
+            and not cfg.dep_quant and not cfg.mrl and not cfg.isp
+            and not cfg.ibc and not cfg.lfnst
+            and getattr(ctrl, "scaling_lists", None) is None
+            and not cfg.lmcs_enable and not cfg.alf_type
+            and not cfg.vaq and not cfg.target_bitrate > 0)
+
+    # --- partition -------------------------------------------------------
+    def build_partition(self, x: int, y: int, w: int, h: int) -> CtuNode:
+        """Fixed-size partition: QT down to `split_to`, with implicit
+        boundary splits. The RD-driven partition search replaces this."""
+        ctrl = self.ctrl
+        node = CtuNode(x, y, w, h)
+        crosses = x + w > ctrl.in_width or y + h > ctrl.in_height
+        split_to = max(8, min(TR_MAX_WIDTH,
+                              LCU_WIDTH >> self.cfg.pu_depth_intra[0]))
+        if (w > split_to or crosses) and w > 4:
+            node.split = QT_SPLIT
+            for (sx, sy, sw, sh) in split_locs(x, y, w, h, QT_SPLIT):
+                if sx >= ctrl.in_width or sy >= ctrl.in_height:
+                    continue
+                node.children.append(self.build_partition(sx, sy, sw, sh))
+        return node
+
+    # --- mode decision ---------------------------------------------------
+    def search_intra_mode(self, src: np.ndarray, planes_rec: FramePlanes,
+                          coded_mask: np.ndarray, x, y, w, h) -> int:
+        """Pick the luma mode by SATD over all 67 regular modes (the
+        sequential analogue of the rough search, search_intra.c:986)."""
+        ctrl = self.ctrl
+        refs = intra_ops.build_reference(
+            planes_rec.y, coded_mask, x, y, w, h,
+            ctrl.in_width, ctrl.in_height, ctrl.bitdepth,
+            wpp=ctrl.cfg.wpp)
+        block = src[y:y + h, x:x + w]
+        best_mode, best_cost = 0, None
+        for mode in range(67):
+            pred = intra_ops.predict_intra(
+                mode, w, h, refs, ctrl.bitdepth,
+                cu_log2_w=w.bit_length() - 1, cu_log2_h=h.bit_length() - 1)
+            c = int(satd(block, pred))
+            if best_cost is None or c < best_cost:
+                best_mode, best_cost = mode, c
+        return best_mode
+
+    def dispatch_blocks(self, src_y: np.ndarray, w: int, h: int,
+                        positions: list):
+        """Dispatch the batched intra search for one size class without
+        blocking; returns resolve() -> (descs, costs). JAX async dispatch
+        lets several size classes (and the next frame) run back-to-back on
+        the device while the host prepares or finalizes."""
+        import jax
+        ctrl = self.ctrl
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from ..ops.intra_batch import grid_of_positions
+        from .partition import qp_to_lambda
+        rough = bool(getattr(self.cfg, "intra_rough", False))
+        grid = grid_of_positions(positions, w, h) if not rough else None
+        combo = _get_intra_combo_fn(w, h, ctrl.bitdepth, rough=rough,
+                                    grid=grid)
+        B = len(positions)
+        # ship the source plane to the device once per frame; the cache
+        # holds the host array itself so its identity cannot be recycled
+        cache = getattr(self, "_src_dev", None)
+        if cache is None or cache[0] is not src_y:
+            arr = src_y if src_y.dtype == np.int32 \
+                else src_y.astype(np.int32)
+            self._src_dev = (src_y, jax.device_put(arr))
+        src_dev = self._src_dev[1]
+        qp = self.frame_qp
+        qps = ctrl.luma_qp_scaled(qp)
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        if grid is not None:
+            best_d, rd_d, _satd_d = combo(src_dev, np.int32(qps),
+                                          np.float32(qp_to_lambda(qp)),
+                                          wts, _MODE_BITS)
+        else:
+            xs = np.fromiter((p[0] for p in positions), dtype=np.int32,
+                             count=B)
+            ys = np.fromiter((p[1] for p in positions), dtype=np.int32,
+                             count=B)
+            best_d, rd_d, _satd_d = combo(src_dev, xs, ys, np.int32(qps),
+                                          np.float32(qp_to_lambda(qp)),
+                                          wts, _MODE_BITS)
+        mip_out = None
+        if self.cfg.mip:
+            from ..ops.mip import mip_mode_count
+            mip_combo, n_cand = _get_mip_combo_fn(w, h, ctrl.bitdepth)
+            mip_bits = np.full(n_cand, 6.0, dtype=np.float32)
+            mxs = np.fromiter((p[0] for p in positions), dtype=np.int32,
+                              count=B)
+            mys = np.fromiter((p[1] for p in positions), dtype=np.int32,
+                              count=B)
+            mip_out = mip_combo(src_dev, mxs, mys, np.int32(qps),
+                                np.float32(qp_to_lambda(qp)), wts, mip_bits)
+            n_modes = mip_mode_count(w, h)
+
+        def resolve(pre=None):
+            if pre is not None:
+                best = pre[0]
+                rd_costs = np.array(pre[1])
+                mvals = pre[2:] if mip_out is not None else None
+            else:
+                best = np.asarray(best_d)
+                rd_costs = np.array(np.asarray(rd_d))
+                mvals = (np.asarray(mip_out[0]), np.asarray(mip_out[1]))                     if mip_out is not None else None
+            descs = [{"type": "intra", "mode": int(best[k]), "tr_idx": 0}
+                     for k in range(B)]
+            if mvals is not None:
+                mbest, mcost = mvals[0], mvals[1]
+                for k in range(B):
+                    if mcost[k] < rd_costs[k]:
+                        rd_costs[k] = mcost[k]
+                        c = int(mbest[k])
+                        descs[k] = {"type": "intra",
+                                    "mode": c % n_modes,
+                                    "mip": True,
+                                    "mip_t": c >= n_modes,
+                                    "tr_idx": 0}
+            return descs, rd_costs
+
+        # device handles exposed for single-fetch batching: the frame
+        # dispatcher concatenates every size class's results into ONE
+        # device array and fetches it once
+        resolve.dev = [best_d, rd_d] + ([mip_out[0], mip_out[1]]
+                                        if mip_out is not None else [])
+        return resolve
+
+    def search_blocks(self, src_y: np.ndarray, w: int, h: int,
+                      positions: list,
+                      ref_plane: np.ndarray | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched best-mode search for aligned w x h blocks at `positions`
+        (raster order). Returns (modes, satd_costs) arrays.
+
+        Open-loop: references from the source plane (or `ref_plane` when
+        given — e.g. the QP-matched pseudo-recon, so intra mode costs in
+        inter slices aren't estimated against unrealistically clean
+        neighbors), availability as-if the blocks were coded sequentially
+        in raster order.
+        """
+        ctrl = self.ctrl
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from ..ops.intra_batch import build_refs_grid
+        from .partition import qp_to_lambda
+        predict, rd_fn = _get_search_fns(w, h, ctrl.bitdepth)
+        B = len(positions)
+        blocks = np.empty((B, h, w), dtype=np.int32)
+        for k, (x, y) in enumerate(positions):
+            blocks[k] = src_y[y:y + h, x:x + w]
+        r = build_refs_grid(ref_plane if ref_plane is not None else src_y,
+                            positions, w, h)
+        qp = self.frame_qp
+        qps = ctrl.luma_qp_scaled(qp)
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        best, rd_costs, _satd = rd_fn(
+            predict(r), blocks, np.int32(qps),
+            np.float32(qp_to_lambda(qp)), wts, _MODE_BITS)
+        best = np.asarray(best)
+        rd_costs = np.asarray(rd_costs)
+        tr_idxs = np.zeros(len(positions), dtype=np.int32)
+        # MTS only at TU sizes <= 32 (sps_max_mts_size); 64x64 CUs are
+        # implicit-split DCT2 TUs
+        if self.cfg.mts in (1, 3) and w <= TR_MAX_WIDTH \
+                and h <= TR_MAX_WIDTH:
+            import jax
+            from ..ops.intra_batch import build_mode_tables, predict_one_np
+            from ..ops.rd_cost import make_mts_search_fn
+            key = ("mts", w, h, ctrl.bitdepth)
+            if key not in _JIT_CACHE:
+                _JIT_CACHE[key] = jax.jit(
+                    make_mts_search_fn(w, h, ctrl.bitdepth))
+            mts_fn = _JIT_CACHE[key]
+            preds_all = np.asarray(predict(r))
+            preds_best = preds_all[np.arange(len(positions)), best]
+            tr, mts_cost, _dc = mts_fn(preds_best, blocks, np.int32(qps),
+                                       np.float32(qp_to_lambda(qp)), wts)
+            tr_idxs = np.asarray(tr)
+            rd_costs = np.minimum(rd_costs, np.asarray(mts_cost))
+        descs = [{"type": "intra", "mode": int(best[k]),
+                  "tr_idx": int(tr_idxs[k])}
+                 for k in range(len(positions))]
+        return descs, rd_costs
+
+    def search_inter_blocks(self, src_y: np.ndarray, ref_y: np.ndarray,
+                            w: int, h: int, positions: list,
+                            search_range: int = 16):
+        """Batched full-pel motion search + RD costing for aligned blocks.
+
+        Returns (descs, costs); desc = {'type': 'inter', 'mv': (x16, y16)}
+        with MVs in 1/16-pel units.
+        """
+        import jax
+        ctrl = self.ctrl
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from ..ops.inter import fetch_extended_block
+        from ..ops.me import make_fullpel_search_fn, make_mv_penalty, mv_bits_est
+        from ..ops.rd_cost import make_rd_cost_pred_fn
+        from .partition import qp_to_lambda
+        from ..ops.me import make_frac_search_fn
+        r = search_range
+        key = ("me", w, h, r)
+        if key not in _JIT_CACHE:
+            _JIT_CACHE[key] = (jax.jit(make_fullpel_search_fn(w, h, r)),
+                               jax.jit(make_rd_cost_pred_fn(w, h,
+                                                            ctrl.bitdepth)),
+                               jax.jit(make_frac_search_fn(w, h,
+                                                           ctrl.bitdepth)))
+        me_fn, rd_fn, frac_fn = _JIT_CACHE[key]
+        qp = self.frame_qp
+        lam = qp_to_lambda(qp)
+        penalty = make_mv_penalty(r, np.sqrt(lam))
+
+        B = len(positions)
+        windows = np.empty((B, h + 2 * r, w + 2 * r), dtype=np.int32)
+        blocks = np.empty((B, h, w), dtype=np.int32)
+        for k, (x, y) in enumerate(positions):
+            windows[k] = fetch_extended_block(ref_y, x, y, w, h, r, r, r, r)
+            blocks[k] = src_y[y:y + h, x:x + w]
+        mvx, mvy, _c = me_fn(windows, blocks, penalty)
+        mvx = np.asarray(mvx)
+        mvy = np.asarray(mvy)
+
+        # quarter-pel refinement: 7x7 offset grid around the full-pel best
+        lam_sqrt = np.sqrt(lam)
+        fpen = np.empty(49, dtype=np.float32)
+        for k in range(49):
+            dxq, dyq = k % 7 - 3, k // 7 - 3
+            fpen[k] = lam_sqrt * ((0.0 if dxq == 0 else 2.0)
+                                  + (0.0 if dyq == 0 else 2.0))
+        fw_pad = 5
+        fwin = np.empty((B, h + 2 * fw_pad, w + 2 * fw_pad), dtype=np.int32)
+        for k, (x, y) in enumerate(positions):
+            fwin[k] = fetch_extended_block(
+                ref_y, x + int(mvx[k]), y + int(mvy[k]), w, h,
+                fw_pad, fw_pad, fw_pad, fw_pad)
+        best_off, preds, _fc = frac_fn(fwin, blocks, fpen)
+        best_off = np.asarray(best_off)
+        preds = np.asarray(preds)
+
+        pred = np.empty((B, h, w), dtype=np.int32)
+        bits = np.empty(B, dtype=np.float32)
+        mv16 = np.empty((B, 2), dtype=np.int64)
+        for k in range(B):
+            offq_x = int(best_off[k]) % 7 - 3
+            offq_y = int(best_off[k]) // 7 - 3
+            mv16[k, 0] = int(mvx[k]) * 16 + offq_x * 4
+            mv16[k, 1] = int(mvy[k]) * 16 + offq_y * 4
+            pred[k] = preds[k, int(best_off[k])]
+            bits[k] = (mv_bits_est(int(mv16[k, 0]) >> 2)
+                       + mv_bits_est(int(mv16[k, 1]) >> 2) + 4.0)
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        costs = np.asarray(rd_fn(pred, blocks,
+                                 np.int32(self.ctrl.luma_qp_scaled(qp)),
+                                 np.float32(lam), wts, bits))
+        descs = [{"type": "inter",
+                  "mv": (int(mv16[k, 0]), int(mv16[k, 1]))}
+                 for k in range(B)]
+        return descs, costs
+
+    def search_combined(self, src_y, rl, w, h, positions,
+                        is_b: bool = False):
+        """Inter (multi-ref uni over both lists + bipred) vs intra decision
+        per block (search_cu's mode loop + search_pu_inter bipred,
+        batched)."""
+        # intra candidates are costed against QP-degraded neighbors (the
+        # closed-loop analog: search.c predicts from in-loop recon, which
+        # at high QP is far noisier than the source)
+        cache = getattr(self, "_pseudo_ref", None)
+        qp = self.frame_qp
+        if cache is None or cache[0] is not src_y or cache[1] != qp:
+            from ..ops.pseudo_recon import pseudo_recon_plane
+            plane = pseudo_recon_plane(
+                src_y, self.ctrl.luma_qp_scaled(qp), self.ctrl.bitdepth)
+            self._pseudo_ref = cache = (src_y, qp, plane)
+        d_i, c_i = self.search_blocks(src_y, w, h, positions,
+                                      ref_plane=cache[2])
+        # inter candidates only at sizes the inter depth range allows
+        # (search.c check_can_use_inter: WITHIN(depth, min, max))
+        from ..consts import LCU_WIDTH as _LCU
+        depth = (_LCU // max(w, h)).bit_length() - 1
+        lo, hi = self.cfg.pu_depth_inter[0], self.cfg.pu_depth_inter[1]
+        if not (lo <= depth <= hi):
+            return d_i, c_i
+        per_ref = []
+        searched = {}
+        for lst, ref_planes in ((0, rl.l0), (1, rl.l1 if is_b else [])):
+            for r, ref in enumerate(ref_planes):
+                key = id(ref)
+                if key in searched:
+                    d_src, c_r = searched[key]
+                    d_r = [dict(dd) for dd in d_src]
+                else:
+                    d_r, c_r = self.search_inter_blocks(src_y, ref.y, w, h,
+                                                        positions)
+                    searched[key] = (d_r, c_r)
+                    d_r = [dict(dd) for dd in d_r]
+                for dd in d_r:
+                    dd["ref"] = r
+                    dd["list"] = lst
+                per_ref.append((lst, r, d_r, c_r))
+        B = len(positions)
+        best_d = list(d_i)
+        best_c = c_i.copy()
+        for lst, r, d_r, c_r in per_ref:
+            for k in range(B):
+                if c_r[k] < best_c[k]:
+                    best_c[k] = c_r[k]
+                    best_d[k] = d_r[k]
+        refs = rl.l0
+        if is_b and per_ref:
+            # bipred candidate: list-0 best on ref 0 + list-1 best on the
+            # other ref (GPB); hi-precision average prediction
+            import jax
+            from ..ops.fast_cost_tables import FAST_COEFF_WTS
+            from ..ops.inter import mc_luma_bi
+            from ..ops.me import mv_bits_est
+            from ..ops.rd_cost import make_rd_cost_pred_fn
+            from .partition import qp_to_lambda
+            l0_entries = [(r, d, c) for (lst, r, d, c) in per_ref if lst == 0]
+            l1_entries = [(r, d, c) for (lst, r, d, c) in per_ref if lst == 1]
+            if not l1_entries:
+                l1_entries = l0_entries
+            r0_idx, d0, _c0 = l0_entries[0]
+            r1, d1, _c1 = l1_entries[-1 if len(l1_entries) > 1 else 0]
+            qp = self.frame_qp
+            lam = qp_to_lambda(qp)
+            key = ("rdp", w, h)
+            if key not in _JIT_CACHE:
+                _JIT_CACHE[key] = jax.jit(
+                    make_rd_cost_pred_fn(w, h, self.ctrl.bitdepth))
+            rd_fn = _JIT_CACHE[key]
+            pred = np.empty((B, h, w), dtype=np.int32)
+            bits = np.empty(B, dtype=np.float32)
+            blocks = np.empty((B, h, w), dtype=np.int32)
+            for k, (x, y) in enumerate(positions):
+                mv0 = d0[k]["mv"]
+                mv1 = d1[k]["mv"]
+                pred[k] = mc_luma_bi(rl.l0[r0_idx].y, rl.l1[r1].y, x, y, w, h,
+                                     mv0, mv1, self.ctrl.bitdepth)
+                bits[k] = (mv_bits_est(mv0[0] >> 2) + mv_bits_est(mv0[1] >> 2)
+                           + mv_bits_est(mv1[0] >> 2)
+                           + mv_bits_est(mv1[1] >> 2) + 8.0)
+                blocks[k] = src_y[y:y + h, x:x + w]
+            wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+            c_bi = np.asarray(rd_fn(pred, blocks,
+                                    np.int32(self.ctrl.luma_qp_scaled(qp)),
+                                    np.float32(lam), wts, bits))
+            for k in range(B):
+                if c_bi[k] < best_c[k]:
+                    best_c[k] = c_bi[k]
+                    best_d[k] = {"type": "bi",
+                                 "mv0": d0[k]["mv"], "ref0": r0_idx,
+                                 "mv1": d1[k]["mv"], "ref1": r1}
+        return best_d, best_c
+
+    def _dispatch_inter_frame(self, ps, src_y: np.ndarray, rl, fs,
+                              pretoken=None):
+        """Phase-1 dispatch for an inter frame: host C++ ME + device
+        intra screening (the default), falling back to the all-device
+        fused search (dense full-pel over all refs) when the host path's
+        gates fail or --me full* is selected."""
+        if self.cfg.ime_algorithm == 0:
+            r = self._dispatch_inter_frame_hostme(ps, src_y, rl, fs,
+                                                  pretoken=pretoken)
+            if r is not None:
+                return r
+        return self._dispatch_inter_frame_fused(ps, src_y, rl, fs)
+
+    def predispatch_intra_screen(self, fs, src_planes):
+        """Stage-D device dispatch for an upcoming inter frame: the
+        intra screening depends only on the SOURCE (references come from
+        the on-device pseudo-recon), so it can be issued a full pipeline
+        cycle before the frame's references exist. Returns an opaque
+        token for dispatch_inter_search(pretoken=...), or None."""
+        cfg, ctrl = self.cfg, self.ctrl
+        if not self.open_loop or cfg.lmcs_enable \
+                or cfg.ime_algorithm != 0 or not self.native_entropy \
+                or ctrl.bitdepth != 8 or cfg.mts in (1, 3):
+            return None
+        H, W = ctrl.in_height, ctrl.in_width
+        # the device pseudo-recon runs on a 16-px tile grid: pad the
+        # SOURCE plane up to 16-multiples (edge replication) for the
+        # screen only — the class grids come from the real geometry and
+        # already cover the padded extent (e.g. 1080 -> 34 rows of 32)
+        H16, W16 = -(-H // 16) * 16, -(-W // 16) * 16
+        from .partition import PartitionSearch, qp_to_lambda
+        ps = PartitionSearch(ctrl, cfg, qp=fs.qp, is_intra=False)
+        entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        src_y = pad_plane(src_planes.y, W, H)
+        if cfg.host_intra_screen:
+            # C++ screen on a worker thread: zero device involvement in
+            # the serial inter path
+            from ..native import host_screen_native
+            qp = fs.qp
+            wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+            cds = [(w_, h_, *g) for (_k, w_, h_, _p, g) in entries]
+            if self._fetch_exec is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._fetch_exec = ThreadPoolExecutor(2)
+            from .partition import qp_to_lambda as _q2l
+            fetch = self._fetch_exec.submit(
+                host_screen_native, src_y, ctrl.luma_qp_scaled(qp),
+                ctrl.bitdepth, _q2l(qp), wts, _MODE_BITS, cds)
+            return {"outs": None, "qp": qp, "src_y": src_y, "ps": ps,
+                    "entries": entries, "fetch": fetch}
+        src_scr = src_y if (H16 == H and W16 == W) \
+            else pad_plane(src_planes.y, W16, H16)
+        classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
+        fn = _get_pframe_intra_combo_fn(classes, H16, W16, ctrl.bitdepth)
+        narrow = np.uint8 if ctrl.bitdepth <= 8 else np.int16
+        qp = fs.qp
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        md = getattr(self, "_mesh_dispatch", None)
+        if md is not None:
+            # lockstep group dispatch: every GOP worker's request for
+            # this step rides ONE sharded call (parallel.mesh)
+            flat = md.run(
+                self._mesh_slot,
+                ("pframe_intra", classes, H16, W16, ctrl.bitdepth),
+                (src_scr.astype(narrow),
+                 np.int32(ctrl.luma_qp_scaled(qp)),
+                 np.float32(qp_to_lambda(qp)), np.asarray(wts)),
+                lambda: np.asarray(fn(src_scr.astype(narrow),
+                                      np.int32(ctrl.luma_qp_scaled(qp)),
+                                      np.float32(qp_to_lambda(qp)), wts,
+                                      _MODE_BITS)))
+            return {"outs": flat, "qp": qp, "src_y": src_y, "ps": ps,
+                    "entries": entries}
+        import jax
+        src_dev = jax.device_put(src_scr.astype(narrow))
+        outs = fn(src_dev, np.int32(ctrl.luma_qp_scaled(qp)),
+                  np.float32(qp_to_lambda(qp)), wts, _MODE_BITS)
+        try:
+            outs.copy_to_host_async()
+        except (AttributeError, RuntimeError):
+            pass
+        # fetch on a worker thread so the blocking np.asarray runs off
+        # the critical path; two workers let consecutive frames' fetches
+        # overlap instead of serializing
+        if self._fetch_exec is None:
+            from concurrent.futures import ThreadPoolExecutor
+            self._fetch_exec = ThreadPoolExecutor(2)
+        fetch = self._fetch_exec.submit(np.asarray, outs)
+        return {"outs": outs, "qp": qp, "src_y": src_y, "ps": ps,
+                "entries": entries, "fetch": fetch}
+
+    def _uniq_refs(self, rl, is_b: bool):
+        """Unique reference planes across both lists (GPB lists repeat):
+        (uniq, refmap, l1_index, l0_ids, l1_ids)."""
+        uniq: list = []                 # (plane-id, FramePlanes)
+        refmap: list = []               # uniq idx -> (list, ref_idx)
+        l1_index: dict = {}             # uniq idx -> ref idx within l1
+        l0_ids: list = []
+        l1_ids: list = []
+        for lst, planes in ((0, rl.l0), (1, rl.l1 if is_b else [])):
+            for rix, refp in enumerate(planes):
+                found = next((ui for ui, (kid, _p) in enumerate(uniq)
+                              if kid == id(refp)), None)
+                if found is None:
+                    uniq.append((id(refp), refp))
+                    refmap.append((lst, rix))
+                    found = len(uniq) - 1
+                if lst == 0:
+                    if found not in l0_ids:
+                        l0_ids.append(found)
+                else:
+                    l1_index.setdefault(found, rix)
+                    if found not in l1_ids:
+                        l1_ids.append(found)
+        return uniq, refmap, l1_index, l0_ids, l1_ids
+
+    def _dispatch_inter_frame_hostme(self, ps, src_y: np.ndarray, rl,
+                                     fs, pretoken=None):
+        """Host-ME phase 1: C++ hexagon full-pel search with predictor
+        seeding (native/inter.cpp fi_me_frame; reference
+        search_inter.c:767 hexbs) + ONE device dispatch for the intra
+        screening with the pseudo-recon computed on device. For serial
+        (low-delay) frames this removes the per-frame dense-search
+        device round-trip from the critical path."""
+        cfg, ctrl = self.cfg, self.ctrl
+        if ctrl.bitdepth != 8 or cfg.mts in (1, 3) \
+                or not self.native_entropy:
+            return None
+        H, W = ctrl.in_height, ctrl.in_width
+        # the device pseudo-recon needs 16-multiples; the screen source
+        # is edge-padded up to (H16, W16) while ME/finalize stay on the
+        # real geometry
+        H16, W16 = -(-H // 16) * 16, -(-W // 16) * 16
+        fetch_fut = None
+        if pretoken is not None and pretoken["qp"] == fs.qp:
+            # stage-D dispatch already in flight (2-in-flight pipeline)
+            ps = pretoken["ps"]
+            src_y = pretoken["src_y"]
+            entries = pretoken["entries"]
+            fetch_fut = pretoken.get("fetch")
+        else:
+            pretoken = None
+            entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+        is_b = fs.slicetype == SliceType.B
+        uniq, refmap, l1_index, l0_ids, l1_ids = self._uniq_refs(rl, is_b)
+        if not uniq:
+            return None
+        # pu-depth-inter is a soft constraint like pu-depth-intra: the
+        # reference codes large merge/skip CUs on quiet inter content at
+        # every preset (its B-frame bit budget depends on them), so the
+        # lattice always offers inter candidates down to depth 1 (32x32;
+        # 64 would need the inter TU split). Measured: seed-3 RA8 B
+        # frames drop ~6x in bits.
+        lo, hi = cfg.pu_depth_inter
+        lo = min(lo, 1)
+        inter_entries = [e for e in entries
+                         if lo <= (LCU_WIDTH // max(e[1], e[2]))
+                         .bit_length() - 1 <= hi]
+        if not inter_entries:
+            return None
+        from ..native import me_frame_native
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from .partition import qp_to_lambda
+        qp = fs.qp
+        lam = qp_to_lambda(qp)
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+
+        if pretoken is not None:
+            outs = pretoken["outs"]
+        elif cfg.host_intra_screen:
+            from ..native import host_screen_native
+            from ..ops.fast_cost_tables import FAST_COEFF_WTS as _FW
+            cds8 = [(w_, h_, *g) for (_k, w_, h_, _p, g) in entries]
+            if self._fetch_exec is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._fetch_exec = ThreadPoolExecutor(2)
+            outs = None
+            fetch_fut = self._fetch_exec.submit(
+                host_screen_native, src_y, ctrl.luma_qp_scaled(fs.qp),
+                ctrl.bitdepth, qp_to_lambda(fs.qp),
+                _FW[min(fs.qp, len(_FW) - 1)], _MODE_BITS, cds8)
+        else:
+            # device: intra candidates (async dispatch; source inputs)
+            classes = tuple((w_, h_, g)
+                            for (_k, w_, h_, _p, g) in entries)
+            fn = _get_pframe_intra_combo_fn(classes, H16, W16,
+                                            ctrl.bitdepth)
+            md = getattr(self, "_mesh_dispatch", None)
+            narrow = np.uint8 if ctrl.bitdepth <= 8 else np.int16
+            src_scr = src_y if (H16 == H and W16 == W) \
+                else pad_plane(src_y, W16, H16)
+            if md is not None:
+                outs = md.run(
+                    self._mesh_slot,
+                    ("pframe_intra", classes, H16, W16, ctrl.bitdepth),
+                    (src_scr.astype(narrow),
+                     np.int32(ctrl.luma_qp_scaled(qp)),
+                     np.float32(lam), np.asarray(wts)),
+                    lambda: np.asarray(fn(src_scr.astype(narrow),
+                                          np.int32(
+                                              ctrl.luma_qp_scaled(qp)),
+                                          np.float32(lam), wts,
+                                          _MODE_BITS)))
+            else:
+                cache = getattr(self, "_src_dev_narrow", None)
+                if cache is None or cache[0] is not src_y:
+                    import jax
+                    self._src_dev_narrow = (src_y,
+                                            jax.device_put(
+                                                src_scr.astype(narrow)))
+                outs = fn(self._src_dev_narrow[1],
+                          np.int32(ctrl.luma_qp_scaled(qp)),
+                          np.float32(lam), wts, _MODE_BITS)
+                try:
+                    outs.copy_to_host_async()
+                except (AttributeError, RuntimeError):
+                    pass
+
+        # host: C++ full-pel ME while the device crunches
+        class_descs = [(w_, h_, *g)
+                       for (_k, w_, h_, _p, g) in inter_entries]
+        prev_motion = getattr(rl.l0[0], "motion", None) if rl.l0 else None
+        me_range = cfg.me_max_steps if cfg.me_max_steps > 0 else 32
+        # the coarse probe (subsampled step-8 grid on the largest class)
+        # rescues frames whose predictor seeds are unreliable — B slices
+        # whose nearest-ref motion field sits at a different POC distance,
+        # and long-distance LD refs; cheap enough to keep always on
+        mvs, costs = me_frame_native(
+            src_y, uniq, prev_motion, ctrl.luma_qp_scaled(qp),
+            ctrl.bitdepth, lam, me_range, wts, class_descs,
+            coarse=True, u_lists=[l for (l, _r) in refmap],
+            is_b=bool(is_b and l1_ids))
+        R_ = len(uniq)
+
+        def resolve():
+            from .partition import INF
+            flat = fetch_fut.result() if fetch_fut is not None \
+                else np.asarray(outs)       # ONE fetch
+            off = 0
+            intra = {}
+            for e in entries:
+                n_b = len(e[3])
+                intra[id(e)] = (flat[off:off + n_b].astype(np.int32),
+                                flat[off + n_b:off + 2 * n_b])
+                off += 2 * n_b
+            # slice the packed ME outputs per class
+            me_off = {}
+            moff = 0
+            for e in inter_entries:
+                me_off[id(e)] = moff
+                moff += len(e[3])
+            use_flat = (self._native_inter
+                        and not getattr(self,
+                                        "force_python_inter_finalize",
+                                        False)
+                        and not getattr(self, "force_python_tree", False)
+                        and not ps.bt_parents and not ps.tt_parents
+                        and all(max(e[1], e[2]) <= 32
+                                for e in inter_entries))
+            per_entry = {}
+            cost, mode = {}, {}
+            for e in entries:
+                (key, w_, h_, positions, g) = e
+                gx, gy = g[4], g[5]
+                ibest, ic = intra[id(e)]
+                if id(e) in me_off:
+                    o = me_off[id(e)]
+                    n_b = len(positions)
+                    ccosts = costs[:, o:o + n_b]        # [R, B]
+                    cmvx = mvs[:, o:o + n_b, 0]
+                    cmvy = mvs[:, o:o + n_b, 1]
+                    rmin = ccosts.min(axis=0)
+                    rarg = ccosts.argmin(axis=0)
+                    choice = np.where(rmin < ic, rarg, -1)
+                    import os as _os
+                    if _os.environ.get("UVG_DBG_RA"):
+                        print(f"DBG poc={fs.poc} {w_}x{h_} "
+                              f"ic_med={np.median(ic):.0f} "
+                              f"rmin_med={np.median(rmin):.0f} "
+                              f"inter_frac={(rmin < ic).mean():.2f} "
+                              f"R={ccosts.shape[0]} lam={lam:.1f}")
+                    cgrid = np.minimum(ic, rmin)
+                    l0b = l1b = None
+                    if is_b and l1_ids:
+                        l0b = np.asarray(l0_ids)[
+                            ccosts[l0_ids].argmin(axis=0)]
+                        l1b = np.asarray(l1_ids)[
+                            ccosts[l1_ids].argmin(axis=0)]
+                    if use_flat:
+                        per_entry[id(e)] = (ibest, choice, cmvx, cmvy,
+                                            l0b, l1b)
+                    else:
+                        descs = _HostInterDescs(g, ibest, choice, cmvx,
+                                                cmvy, refmap, l0b, l1b)
+                else:
+                    cgrid = ic
+                    if use_flat:
+                        per_entry[id(e)] = (ibest, None, None, None,
+                                            None, None)
+                    else:
+                        descs = _GridDescs(ibest, g)
+                if key[0] == "shape":
+                    _kind, gw, gh = key
+                    c = np.full((gh, gw), INF)
+                    c[:gy, :gx] = cgrid.reshape(gy, gx)
+                    cost[(w_, h_)] = c
+                    if not use_flat:
+                        mode[(w_, h_)] = descs
+                else:
+                    _kind, s, vert = key
+                    gh2 = -(-ctrl.in_height // s)
+                    gw2 = -(-ctrl.in_width // s)
+                    c = np.full((gh2, gw2), INF)
+                    c[:gy, :gx] = cgrid.reshape(gy, gx)
+                    cost[("ttv" if vert else "tth", s)] = c
+                    if not use_flat:
+                        mode[("ttv" if vert else "tth", s)] = descs
+            if use_flat:
+                # vectorized leaf + desc extraction: no CtuNode objects
+                dpc = ps.dp_choice(cost)
+                lx, ly, lsz = ps.flat_square_leaves(dpc)
+                n = len(lx)
+                inl = np.zeros((n, 18), dtype=np.int32)
+                inl[:, 0] = lx
+                inl[:, 1] = ly
+                inl[:, 2] = lsz
+                inl[:, 3] = lsz
+                rm_list_a = np.asarray([l for (l, _r) in refmap],
+                                       dtype=np.int32)
+                rm_ref_a = np.asarray([r for (_l, r) in refmap],
+                                      dtype=np.int32)
+                by_size = {e[1]: e for e in entries
+                           if e[0][0] == "shape" and e[1] == e[2]}
+                for s_, e in by_size.items():
+                    sel = lsz == s_
+                    if not sel.any():
+                        continue
+                    rows = np.nonzero(sel)[0]
+                    g = e[4]
+                    k = (ly[rows] // s_) * g[4] + lx[rows] // s_
+                    ibest, chv, cmvx, cmvy, l0b, l1b = per_entry[id(e)]
+                    if chv is None:
+                        inl[rows, 5] = ibest[k]
+                        continue
+                    chk = chv[k]
+                    isin = chk >= 0
+                    ri_x = rows[~isin]
+                    inl[ri_x, 5] = ibest[k[~isin]]
+                    ri = rows[isin]
+                    u = chk[isin]
+                    kk = k[isin]
+                    inl[ri, 4] = 1
+                    inl[ri, 6] = u
+                    inl[ri, 7] = cmvx[u, kk] * 16
+                    inl[ri, 8] = cmvy[u, kk] * 16
+                    inl[ri, 9] = rm_list_a[u]
+                    inl[ri, 10] = rm_ref_a[u]
+                    if l0b is not None:
+                        inl[ri, 11] = 1
+                        u0 = l0b[kk]
+                        u1 = l1b[kk]
+                        inl[ri, 12] = u0
+                        inl[ri, 13] = cmvx[u0, kk] * 16
+                        inl[ri, 14] = cmvy[u0, kk] * 16
+                        inl[ri, 15] = u1
+                        inl[ri, 16] = cmvx[u1, kk] * 16
+                        inl[ri, 17] = cmvy[u1, kk] * 16
+                self._fused_ctx = (uniq, refmap, l1_index, src_y, fs)
+                return _FlatLeaves(inl)
+            ctus = ps._decide(cost, mode)
+            if self._native_inter \
+                    and not getattr(self, "force_python_inter_finalize",
+                                    False):
+                self._fused_ctx = (uniq, refmap, l1_index, src_y, fs)
+            else:
+                self._refine_inter_leaves(ctus, uniq, refmap, l1_index,
+                                          src_y, fs)
+            return ctus
+
+        return resolve
+
+    def _dispatch_inter_frame_fused(self, ps, src_y: np.ndarray, rl,
+                                    fs):
+        """Single-dispatch inter frame search: intra + dense full-pel
+        inter for every size class in one jitted call, quarter-pel as a
+        second leaf-level dispatch after the partition DP
+        (ops.me_frame). Returns a resolve() thunk -> ctus, or None when
+        the config needs the per-class path (MIP, MTS RD, 10-bit,
+        non-grid geometry)."""
+        cfg, ctrl = self.cfg, self.ctrl
+        if ctrl.bitdepth != 8 or cfg.mts in (1, 3):
+            return None
+        entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+        # unique reference planes across both lists (GPB lists repeat)
+        is_b = fs.slicetype == SliceType.B
+        uniq: list = []                 # (plane-id, FramePlanes)
+        refmap: list = []               # uniq idx -> (list, ref_idx)
+        l1_index: dict = {}             # uniq idx -> ref idx within l1
+        l0_ids: list = []
+        l1_ids: list = []
+        for lst, planes in ((0, rl.l0), (1, rl.l1 if is_b else [])):
+            for rix, refp in enumerate(planes):
+                found = next((ui for ui, (kid, _p) in enumerate(uniq)
+                              if kid == id(refp)), None)
+                if found is None:
+                    uniq.append((id(refp), refp))
+                    refmap.append((lst, rix))
+                    found = len(uniq) - 1
+                if lst == 0:
+                    if found not in l0_ids:
+                        l0_ids.append(found)
+                else:
+                    l1_index.setdefault(found, rix)
+                    if found not in l1_ids:
+                        l1_ids.append(found)
+        if not uniq:
+            return None
+        # inter candidates at depth-allowed classes, with the depth-1
+        # (32x32) floor — pu-depth-inter is a soft constraint (see the
+        # host-ME path note)
+        lo, hi = cfg.pu_depth_inter
+        lo = min(lo, 1)
+        inter_entries = [e for e in entries
+                         if lo <= (LCU_WIDTH // max(e[1], e[2]))
+                         .bit_length() - 1 <= hi]
+        if not inter_entries:
+            return None
+        import jax
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from ..ops.me import make_mv_penalty
+        from ..ops.me_frame import mv_bits_table
+        from ..ops.pseudo_recon import pseudo_recon_plane
+        from .partition import qp_to_lambda
+        classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
+        iclasses = tuple((w_, h_, g)
+                         for (_k, w_, h_, _p, g) in inter_entries)
+        H, W = ctrl.in_height, ctrl.in_width
+        R_ = len(uniq)
+        fn = _get_inter_frame_combo_fn(classes, iclasses, R_, H, W,
+                                       ctrl.bitdepth)
+        qp = fs.qp
+        lam = qp_to_lambda(qp)
+        r = 16
+        pseudo = pseudo_recon_plane(src_y, ctrl.luma_qp_scaled(qp),
+                                    ctrl.bitdepth)
+        refs_pad = np.stack([np.pad(p.y, r, mode="edge").astype(np.uint8)
+                             for (_kid, p) in uniq])
+        pen = make_mv_penalty(r, np.sqrt(lam)).reshape(-1)
+        bits_tab = mv_bits_table(r)
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        outs = fn(src_y.astype(np.uint8), pseudo.astype(np.uint8),
+                  refs_pad, pen, bits_tab,
+                  np.int32(ctrl.luma_qp_scaled(qp)), np.float32(lam),
+                  wts, _MODE_BITS)
+        try:
+            # D2H starts as soon as the device finishes, so resolve()'s
+            # fetch finds the data already host-side (the frame pipeline
+            # runs the previous frame's entropy in between)
+            outs.copy_to_host_async()
+        except (AttributeError, RuntimeError):
+            pass
+        n_off = (2 * r + 1) ** 2
+
+        def resolve():
+            from .partition import INF
+            flat = np.asarray(outs)         # ONE fetch
+            off = 0
+            intra = {}
+            for e in entries:
+                (_key, w_, h_, positions, _g) = e
+                n_b = len(positions)
+                intra[id(e)] = (flat[off:off + n_b].astype(np.int32),
+                                flat[off + n_b:off + 2 * n_b])
+                off += 2 * n_b
+            imv = {}
+            icost = {}
+            for ri in range(R_):
+                for e in inter_entries:
+                    n_b = len(e[3])
+                    imv.setdefault(id(e), []).append(
+                        flat[off:off + n_b].astype(np.int32))
+                    icost.setdefault(id(e), []).append(
+                        flat[off + n_b:off + 2 * n_b])
+                    off += 2 * n_b
+            cost, mode = {}, {}
+            for e in entries:
+                (key, w_, h_, positions, g) = e
+                gx, gy = g[4], g[5]
+                ibest, ic = intra[id(e)]
+                if id(e) in imv:
+                    mvs = np.stack(imv[id(e)])          # [R, B]
+                    costs = np.stack(icost[id(e)])      # [R, B]
+                    rmin = costs.min(axis=0)
+                    rarg = costs.argmin(axis=0)
+                    choice = np.where(rmin < ic, rarg, -1)
+                    cgrid = np.minimum(ic, rmin)
+                    l0b = l1b = None
+                    if is_b and l1_ids:
+                        l0b = np.asarray(l0_ids)[
+                            costs[l0_ids].argmin(axis=0)]
+                        l1b = np.asarray(l1_ids)[
+                            costs[l1_ids].argmin(axis=0)]
+                    descs = _InterGridDescs(g, ibest, choice, mvs,
+                                            refmap, l0b, l1b, r)
+                else:
+                    cgrid = ic
+                    descs = _GridDescs(ibest, g)
+                if key[0] == "shape":
+                    _kind, gw, gh = key
+                    c = np.full((gh, gw), INF)
+                    c[:gy, :gx] = cgrid.reshape(gy, gx)
+                    cost[(w_, h_)] = c
+                    mode[(w_, h_)] = descs
+                else:
+                    _kind, s, vert = key
+                    gh2 = -(-ctrl.in_height // s)
+                    gw2 = -(-ctrl.in_width // s)
+                    c = np.full((gh2, gw2), INF)
+                    c[:gy, :gx] = cgrid.reshape(gy, gx)
+                    cost[("ttv" if vert else "tth", s)] = c
+                    mode[("ttv" if vert else "tth", s)] = descs
+            ctus = ps._decide(cost, mode)
+            if self._native_inter \
+                    and not getattr(self, "force_python_inter_finalize",
+                                    False):
+                # native whole-frame finalize does the qpel refine in C++
+                # (inter.cpp pass 1); stash the phase-1 context for it (or
+                # for the python fallback when the frame gates fail)
+                self._fused_ctx = (uniq, refmap, l1_index, src_y, fs)
+            else:
+                self._refine_inter_leaves(ctus, uniq, refmap, l1_index,
+                                          src_y, fs)
+            return ctus
+
+        return resolve
+
+    def _refine_inter_leaves(self, ctus, uniq, refmap, l1_index,
+                             src_y: np.ndarray, fs) -> None:
+        """Leaf-level quarter-pel refinement + bipred decision, one
+        dispatch for every decided inter leaf regardless of shape
+        (8x8-tile decomposition, ops.me_frame.make_leaf_qpel_fn).
+        Replaces the per-class 49-offset refinement of the per-class
+        path (search_inter.c:1029 fractional search analog)."""
+        import jax
+        from ..ops.cost import satd as satd_np
+        from ..ops.inter import fetch_extended_block, mc_luma_bi
+        from ..ops.me import mv_bits_est
+        from ..ops.me_frame import TILE, make_leaf_qpel_fn
+        from .partition import qp_to_lambda
+        cfg, ctrl = self.cfg, self.ctrl
+        is_b = fs.slicetype == SliceType.B
+        lam_sqrt = float(np.sqrt(qp_to_lambda(fs.qp)))
+        cands = []                      # (leaf, uniq idx, mv16, role)
+        for node in ctus:
+            for leaf in node.leaves():
+                d = leaf.cu_desc
+                if d.get("type") != "inter":
+                    continue
+                if is_b and "_l0" in d:
+                    u0, mv0 = d["_l0"]
+                    u1, mv1 = d["_l1"]
+                    cands.append((leaf, u0, mv0, 0))
+                    cands.append((leaf, u1, mv1, 1))
+                else:
+                    cands.append((leaf, d["_u"], d["mv"], 0))
+        if not cands:
+            return
+        pen49 = np.empty(49, dtype=np.float32)
+        for k in range(49):
+            dxq, dyq = k % 7 - 3, k // 7 - 3
+            pen49[k] = lam_sqrt * ((0.0 if dxq == 0 else 2.0)
+                                   + (0.0 if dyq == 0 else 2.0))
+        tiles, blocks, ids = [], [], []
+        for ci, (leaf, u, mv, _role) in enumerate(cands):
+            plane = uniq[u][1].y
+            fx = leaf.x + (mv[0] >> 4)
+            fy = leaf.y + (mv[1] >> 4)
+            win = fetch_extended_block(plane, fx, fy, leaf.w, leaf.h,
+                                       5, 5, 5, 5)
+            blk = src_y[leaf.y:leaf.y + leaf.h, leaf.x:leaf.x + leaf.w]
+            for i in range(leaf.h // TILE):
+                for j in range(leaf.w // TILE):
+                    tiles.append(win[TILE * i:TILE * i + 18,
+                                     TILE * j:TILE * j + 18])
+                    blocks.append(blk[TILE * i:TILE * i + TILE,
+                                      TILE * j:TILE * j + TILE])
+                    ids.append(ci)
+        # bucketed padding bounds recompiles to O(log) shape variants
+        nt = 1 << max(6, (len(tiles) - 1).bit_length())
+        nl = 1 << max(4, (len(cands) - 1).bit_length())
+        pad_t = nt - len(tiles)
+        if pad_t:
+            z18 = np.zeros((18, 18), dtype=np.int32)
+            z8 = np.zeros((TILE, TILE), dtype=np.int32)
+            tiles += [z18] * pad_t
+            blocks += [z8] * pad_t
+            ids += [nl] * pad_t
+        key = ("leafq", nt, nl, ctrl.bitdepth)
+        if key not in _JIT_CACHE:
+            _JIT_CACHE[key] = jax.jit(
+                make_leaf_qpel_fn(nt, nl, ctrl.bitdepth))
+        _best_d, _bc_d, seg_d = _JIT_CACHE[key](
+            np.stack(tiles).astype(np.int32),
+            np.stack(blocks).astype(np.int32),
+            np.asarray(ids, dtype=np.int32), pen49)
+        seg = np.asarray(seg_d)
+
+        def refined(i):
+            # two-stage selection (half-pel square then quarter-pel
+            # neighbors, search_inter.c search_frac:1029 structure);
+            # the C++ finalize (inter.cpp) evaluates the same subset
+            k = _two_stage_qpel(seg[i], pen49)
+            mv = cands[i][2]
+            return ((mv[0] + (k % 7 - 3) * 4, mv[1] + (k // 7 - 3) * 4),
+                    float(seg[i, k]))
+
+        def uni_bits(mv):
+            return mv_bits_est(mv[0] >> 2) + mv_bits_est(mv[1] >> 2) \
+                + 4.0
+
+        i = 0
+        while i < len(cands):
+            leaf, u0, _mv, role = cands[i]
+            d = leaf.cu_desc
+            pair = (role == 0 and i + 1 < len(cands)
+                    and cands[i + 1][0] is leaf and cands[i + 1][3] == 1)
+            if not pair:
+                d["mv"], _s = refined(i)
+                i += 1
+                continue
+            u1 = cands[i + 1][1]
+            mv0, s0 = refined(i)
+            mv1, s1 = refined(i + 1)
+            c0 = s0 + lam_sqrt * uni_bits(mv0)
+            c1 = s1 + lam_sqrt * uni_bits(mv1)
+            cb = None
+            if cfg.bipred and leaf.w + leaf.h > 12:
+                pred_bi = mc_luma_bi(uniq[u0][1].y, uniq[u1][1].y,
+                                     leaf.x, leaf.y, leaf.w, leaf.h,
+                                     mv0, mv1, ctrl.bitdepth)
+                blk = src_y[leaf.y:leaf.y + leaf.h,
+                            leaf.x:leaf.x + leaf.w]
+                cb = float(satd_np(blk, pred_bi)) + lam_sqrt * (
+                    uni_bits(mv0) + uni_bits(mv1))
+            if cb is not None and cb < c0 and cb < c1:
+                d.clear()
+                d.update({"type": "bi", "mv0": mv0, "ref0": refmap[u0][1],
+                          "mv1": mv1, "ref1": l1_index.get(u1, 0)})
+            elif c1 < c0:
+                d.clear()
+                d.update({"type": "inter", "mv": mv1, "list": 1,
+                          "ref": l1_index.get(u1, 0)}
+                         if refmap[u1][0] == 1 else
+                         {"type": "inter", "mv": mv1, "list": 0,
+                          "ref": refmap[u1][1]})
+            else:
+                d.clear()
+                d.update({"type": "inter", "mv": mv0, "list": 0,
+                          "ref": refmap[u0][1]})
+            i += 2
+
+    def _finalize_sequential(self, leaves, fs, src, rec, coded_mask,
+                             refs, lmcs=None, ctu_qps=None) -> None:
+        """Sequential closed-loop pass: reconstruct each leaf with its
+        decided mode, make merge/skip decisions, maintain the CU map +
+        HMVP state (the normative derivation shared with the oracle)."""
+        ctrl = self.ctrl
+        cfg = self.cfg
+        rl = refs
+        from .inter_cand import (HmvpState, MotionInfo, TmvpCtx,
+                                 derive_amvp, derive_merge_list)
+        from ..ops.me import mv_bits_est
+        from .partition import qp_to_lambda
+        rdl = qp_to_lambda(fs.qp) if cfg.rdoq_enable else 0.0
+        cu_map = CuMap(ctrl.in_width, ctrl.in_height)
+        if ctrl.tiles_enable:
+            cu_map.set_tile_map(ctrl)
+        hmvp = HmvpState(ctrl.height_in_lcu)
+        ibc_search = hmvp_ibc = None
+        if cfg.ibc and not ctrl.tiles_enable:
+            from .inter_cand import HmvpIbcState
+            ibc_search = IbcFrameSearch(src)
+            hmvp_ibc = HmvpIbcState()
+        ref_pocs = [rl.pocs0, rl.pocs1]
+        tmvp = TmvpCtx.from_reflists(rl, fs.poc) if cfg.tmvp_enable else None
+        num_ref_merge = min(len(rl.l0), len(rl.l1)) \
+            if fs.slicetype == SliceType.B else len(rl.l0)
+        # per-CU C++ fast path for plain intra CUs (DCT2, no side tools):
+        # the dominant host cost of inter frames is numpy intra recon
+        fast_intra_ok = (self.native_entropy and not cfg.trskip_enable
+                         and not cfg.lfnst and not cfg.rdoq_enable
+                         and not cfg.dep_quant and not cfg.cclm
+                         and not cfg.jccr and not cfg.isp and lmcs is None
+                         and not cfg.ibc
+                         and not ctrl.tiles_enable
+                         and ctrl.scaling_lists is None
+                         and not getattr(self, "force_python_intra_recon",
+                                         False))
+        for leaf in leaves:
+            leaf_qp = fs.qp if ctu_qps is None else int(
+                ctu_qps[(leaf.y // LCU_WIDTH) * ctrl.width_in_lcu
+                        + leaf.x // LCU_WIDTH])
+            tile_rect = None
+            if ctrl.tiles_enable:
+                tid = ctrl.tile_index_of_ctu(leaf.x // LCU_WIDTH,
+                                             leaf.y // LCU_WIDTH)
+                tile_rect = ctrl.tile_bounds_px(tid)
+                cu_map.cur_tile = tid
+                hmvp.cur_tile = tid
+            d = leaf.cu_desc
+            if d["type"] == "intra":
+                cu = CuInfo(leaf.x, leaf.y, leaf.w, leaf.h, type=CU_INTRA,
+                            intra_mode=d["mode"],
+                            intra_mode_chroma=0 if d.get("mip")
+                            else d["mode"],
+                            mip_flag=bool(d.get("mip")),
+                            mip_transposed=bool(d.get("mip_t")),
+                            tr_idx=d.get("tr_idx", 0), qp=leaf_qp)
+                sh = cfg.signhide_enable and not cfg.dep_quant
+                if cfg.mrl and cu.y % LCU_WIDTH != 0 and not cu.mip_flag \
+                        and cu.w <= TR_MAX_WIDTH and cu.h <= TR_MAX_WIDTH:
+                    self._search_mrl(cu, cu_map, rec, coded_mask, src)
+                if fast_intra_ok and cu.tr_idx == 0 and not cu.mip_flag \
+                        and not cu.multi_ref_idx and not cu.local_dual \
+                        and (cu.w == cu.h or (cu.w <= TR_MAX_WIDTH
+                                              and cu.h <= TR_MAX_WIDTH)):
+                    from ..native import reconstruct_intra_cu_native
+                    reconstruct_intra_cu_native(
+                        cu, rec, coded_mask, ctrl.luma_qp_scaled(leaf_qp),
+                        ctrl.chroma_qp_scaled(leaf_qp), ctrl.bitdepth,
+                        sh, cfg.wpp, src)
+                elif cfg.isp and not cu.local_dual and not cu.mip_flag \
+                        and not cu.multi_ref_idx \
+                        and _isp_eligible(cu.w, cu.h):
+                    # ISP-eligible CUs are <= 32x32 (single-TU), so the
+                    # luma-then-chroma split below is availability-
+                    # equivalent to the combined pass. 64x64 CUs must NOT
+                    # take this path: their quadrant-interleaved recon
+                    # marks coded_mask progressively, and pre-marking the
+                    # whole CU before chroma changes chroma ref
+                    # availability vs the decoder.
+                    # luma first, then the ISP trial, then chroma — CCLM
+                    # must predict from the FINAL luma reconstruction
+                    reconstruct_intra_cu(cu, rec, coded_mask, ctrl, leaf_qp,
+                                         src, signhide=sh,
+                                         tile_rect=tile_rect, rdoq_lam=rdl,
+                                         jccr_sign=fs.jccr_sign,
+                                         parts="luma", lmcs=lmcs)
+                    try_isp_modes(cu, rec, coded_mask, ctrl, fs.qp, src,
+                                  qp_to_lambda(fs.qp), signhide=sh,
+                                  tile_rect=tile_rect, rdoq_lam=rdl)
+                    if ctrl.chroma_format != 0:
+                        reconstruct_intra_cu(
+                            cu, rec, coded_mask, ctrl, leaf_qp, src,
+                            signhide=sh, tile_rect=tile_rect, rdoq_lam=rdl,
+                            chroma_search=bool(cfg.cclm),
+                            jccr_sign=fs.jccr_sign, parts="chroma",
+                            lmcs=lmcs)
+                else:
+                    reconstruct_intra_cu(cu, rec, coded_mask, ctrl, leaf_qp,
+                                         src, signhide=sh,
+                                         tile_rect=tile_rect, rdoq_lam=rdl,
+                                         chroma_search=bool(cfg.cclm),
+                                         jccr_sign=fs.jccr_sign, lmcs=lmcs)
+                if cu.tr_idx != 0:
+                    from ..hls.coding_tree import mts_signaling_allowed
+                    if not mts_signaling_allowed(cfg, cu):
+                        # exact quant produced a non-signalable result
+                        cu.tr_idx = 0
+                        cu.cbf.clear()
+                        cu.coeffs.clear()
+                        cu.joint_cb_cr.clear()
+                        reconstruct_intra_cu(cu, rec, coded_mask, ctrl,
+                                             leaf_qp, src, signhide=sh,
+                                             tile_rect=tile_rect,
+                                             rdoq_lam=rdl,
+                                             chroma_search=bool(cfg.cclm),
+                                             jccr_sign=fs.jccr_sign,
+                                             lmcs=lmcs)
+                if ibc_search is not None:
+                    try_ibc_cu(cu, rec, coded_mask, ctrl, fs.qp, src,
+                               qp_to_lambda(fs.qp), ibc_search, cu_map,
+                               hmvp_ibc, signhide=sh, rdoq_lam=rdl)
+                    if cu.type == CU_IBC:
+                        hmvp_ibc.add(cu.x, cu.y, cu.w, cu.h,
+                                     (cu.mv[0][0], cu.mv[0][1]))
+            else:
+                is_b = fs.slicetype == SliceType.B
+                if d["type"] == "bi":
+                    mv_dir = 3
+                    mvs = (tuple(d["mv0"]), tuple(d["mv1"]))
+                    mv_refs = (d.get("ref0", 0), d.get("ref1", 0))
+                elif d.get("list", 0) == 1:
+                    mv_dir = 2
+                    mvs = ((0, 0), tuple(d["mv"]))
+                    mv_refs = (0, d.get("ref", 0))
+                else:
+                    mv_dir = 1
+                    mvs = (tuple(d["mv"]), (0, 0))
+                    mv_refs = (d.get("ref", 0), 0)
+                cu = CuInfo(leaf.x, leaf.y, leaf.w, leaf.h, type=CU_INTER,
+                            mv=mvs, mv_ref=mv_refs, mv_dir=mv_dir, qp=leaf_qp)
+                cands = derive_merge_list(
+                    cu_map, hmvp, cu.x, cu.y, cu.w, cu.h,
+                    ctrl.in_width, ctrl.in_height, cfg.max_merge, is_b,
+                    num_ref_merge, tmvp=tmvp, wpp=cfg.wpp)
+                # merge-mode RD screening: SATD + lambda_sqrt*bits over the
+                # unique legal candidates vs the phase-1 ME/AMVP result
+                # (search_pu_inter merge analysis, search_inter.c:1730-1790)
+                from ..ops.cost import satd as satd_np
+                from .inter_cand import is_duplicate
+                lam_sqrt = float(np.sqrt(qp_to_lambda(fs.qp)))
+                blk = src.y[cu.y:cu.y + cu.h, cu.x:cu.x + cu.w]
+                best_m = None
+                seen: list = []
+                for i, c in enumerate(cands):
+                    if c.dir == 3 and (not cfg.bipred
+                                       or cu.w + cu.h <= 12):
+                        continue
+                    if any(is_duplicate(c, s) for s in seen):
+                        continue
+                    seen.append(c)
+                    pred_c = self._mc_cand(c, cu.x, cu.y, cu.w, cu.h, rl)
+                    if lmcs is not None:    # SATD in the mapped domain
+                        pred_c = lmcs.luts.fwd_lut[pred_c]
+                    mbits = 1.0 + i + (1.0 if i else 0.0)
+                    mcost = float(satd_np(blk, pred_c)) + lam_sqrt * mbits
+                    if best_m is None or mcost < best_m[0]:
+                        best_m = (mcost, i, c)
+                # phase-1 ME cost in the same SATD domain, with real AMVP
+                # mvd bits
+                mvds = [(0, 0), (0, 0)]
+                idxs = [0, 0]
+                me_bits = 1.0
+                for l in range(2):
+                    if not (mv_dir & (1 << l)):
+                        continue
+                    amvp = derive_amvp(cu_map, hmvp, cu.x, cu.y, cu.w,
+                                       cu.h, ctrl.in_width,
+                                       ctrl.in_height, l,
+                                       ref_pocs[l][mv_refs[l]], ref_pocs,
+                                       tmvp=tmvp, wpp=cfg.wpp)
+                    best_i, best_bits = 0, None
+                    for i, mvp in enumerate(amvp):
+                        dqx = (mvs[l][0] - mvp[0]) >> 2
+                        dqy = (mvs[l][1] - mvp[1]) >> 2
+                        b = mv_bits_est(dqx) + mv_bits_est(dqy)
+                        if best_bits is None or b < best_bits:
+                            best_i, best_bits = i, b
+                    mvp = amvp[best_i]
+                    idxs[l] = best_i
+                    mvds[l] = ((mvs[l][0] - mvp[0]) >> 2,
+                               (mvs[l][1] - mvp[1]) >> 2)
+                    assert mvp[0] + (mvds[l][0] << 2) == mvs[l][0]
+                    assert mvp[1] + (mvds[l][1] << 2) == mvs[l][1]
+                    me_bits += best_bits + 1.0 + mv_refs[l]
+                me_pred = self._mc_cand(
+                    MotionInfo(mv=mvs, ref=mv_refs, dir=mv_dir),
+                    cu.x, cu.y, cu.w, cu.h, rl)
+                if lmcs is not None:
+                    me_pred = lmcs.luts.fwd_lut[me_pred]
+                me_cost = float(satd_np(blk, me_pred)) + lam_sqrt * me_bits
+                if best_m is not None and best_m[0] <= me_cost:
+                    c = best_m[2]
+                    cu.merged = True
+                    cu.merge_idx = best_m[1]
+                    cu.mv, cu.mv_ref, cu.mv_dir = c.mv, c.ref, c.dir
+                else:
+                    cu.mv_cand_idx = tuple(idxs)
+                    cu.mvd = (mvds[0], mvds[1])
+                reconstruct_inter_cu(cu, rec, coded_mask, ctrl, leaf_qp, rl,
+                                     src,
+                                     signhide=cfg.signhide_enable
+                                     and not cfg.dep_quant, rdoq_lam=rdl,
+                                     lmcs=lmcs)
+                if cu.merged and not any(cu.cbf.values()):
+                    cu.skipped = True
+                if ibc_search is not None and cu.w <= 32 and cu.h <= 32:
+                    # IBC as an alternative to the committed inter CU
+                    # (search_cu tries IBC beside inter, search.c)
+                    try_ibc_cu(cu, rec, coded_mask, ctrl, leaf_qp, src,
+                               qp_to_lambda(fs.qp), ibc_search, cu_map,
+                               hmvp_ibc, signhide=cfg.signhide_enable
+                               and not cfg.dep_quant, rdoq_lam=rdl)
+                if cu.type == CU_IBC:
+                    hmvp_ibc.add(cu.x, cu.y, cu.w, cu.h,
+                                 (cu.mv[0][0], cu.mv[0][1]))
+                else:
+                    hmvp.add(cu.x, cu.y, cu.w, cu.h,
+                             MotionInfo(mv=cu.mv, ref=cu.mv_ref,
+                                        dir=cu.mv_dir),
+                             cfg.log2_parallel_merge_level)
+            cu_map.set_cu(cu)
+            leaf.cu = cu
+        return cu_map
+
+    def _mc_cand(self, c, x: int, y: int, w: int, h: int, rl):
+        """Luma motion compensation for one merge/ME candidate (the
+        prediction used by the SATD screening, uvg_inter_pred_pu)."""
+        from ..ops.inter import mc_luma, mc_luma_bi
+        bd = self.ctrl.bitdepth
+        if c.dir == 3:
+            return mc_luma_bi(rl.l0[c.ref[0]].y, rl.l1[c.ref[1]].y,
+                              x, y, w, h, c.mv[0], c.mv[1], bd)
+        l = 0 if c.dir & 1 else 1
+        refp = (rl.l0 if l == 0 else rl.l1)[c.ref[l]]
+        return mc_luma(refp.y, x, y, w, h, c.mv[l], bd)
+
+    def _search_mrl(self, cu, cu_map, rec, coded_mask, src) -> None:
+        """MRL refinement: try the MPM modes on reference lines 1/2
+        against the line-0 decision (search_intra.c MRL candidate loop)."""
+        from ..hls.coding_tree import intra_mpm_predictors
+        ctrl = self.ctrl
+        bd = ctrl.bitdepth
+        x, y, w, h = cu.x, cu.y, cu.w, cu.h
+        blk = src.y[y:y + h, x:x + w].astype(np.int64)
+        refs0 = intra_ops.build_reference(
+            rec.y, coded_mask, x, y, w, h, ctrl.in_width, ctrl.in_height, bd,
+            wpp=ctrl.cfg.wpp)
+        pred0 = _predict_tables(cu.intra_mode, w, h, refs0, bd, False,
+                                w.bit_length() - 1, h.bit_length() - 1)
+        best = (float(((blk - pred0) ** 2).sum()), 0, cu.intra_mode)
+        preds = intra_mpm_predictors(cu_map, x, y, w, h)
+        cands = [m for m in dict.fromkeys(preds[1:]) if m != 0]
+        for mrl in (1, 2):
+            refs_k = intra_ops.build_reference_mrl(
+                rec.y, coded_mask, x, y, w, h, ctrl.in_width,
+                ctrl.in_height, bd, mrl)
+            for m in cands:
+                pr = intra_ops.predict_intra_mrl(m, w, h, refs_k, mrl, bd)
+                cost = float(((blk - pr.astype(np.int64)) ** 2).sum()) + 8.0
+                if cost < best[0]:
+                    best = (cost, mrl, m)
+        if best[1]:
+            cu.multi_ref_idx = best[1]
+            cu.intra_mode = best[2]
+            cu.intra_mode_chroma = best[2]
+
+    # --- dual tree (intra slices) ----------------------------------------
+    def build_chroma_tree(self, cx: int, cy: int) -> CtuNode:
+        """Chroma-tree partition for one CTU: QT at the root (keeps every
+        chroma CB <= 32x32 luma units = one chroma TU), implicit splits at
+        frame boundaries (the separate-tree pass of search.c:2450)."""
+        ctrl = self.ctrl
+
+        def build(x, y, s):
+            node = CtuNode(x, y, s, s)
+            crosses = x + s > ctrl.in_width or y + s > ctrl.in_height
+            if s > 32 or (crosses and s > 8):
+                node.split = QT_SPLIT
+                for (sx, sy, sw, sh) in split_locs(x, y, s, s, QT_SPLIT):
+                    if sx >= ctrl.in_width or sy >= ctrl.in_height:
+                        continue
+                    node.children.append(build(sx, sy, sw))
+            return node
+
+        return build(cx * LCU_WIDTH, cy * LCU_WIDTH, LCU_WIDTH)
+
+    def _finalize_chroma_cu(self, leaf, fs, src, rec, coded_mask,
+                            cu_map, lmcs=None, chroma_mask=None) -> None:
+        """Mode decision + reconstruction for one chroma-tree CU."""
+        ctrl = self.ctrl
+        cfg = self.cfg
+        x, y, w, h = leaf.x, leaf.y, leaf.w, leaf.h
+        luma = cu_map.at(x + w // 2, y + h // 2)
+        dm = 0 if (luma is None or luma["mip_flag"]) else luma["intra_mode"]
+        cx, cy2 = x >> 1, y >> 1
+        cw, ch = w >> 1, h >> 1
+        bd = ctrl.bitdepth
+        cand = [dm, 0, 50, 18, 1]
+        if cfg.cclm:
+            cand += [81, 82, 83]
+        best_m, best_cost = dm, None
+        cmask = chroma_mask if chroma_mask is not None else coded_mask
+        for m in dict.fromkeys(cand):
+            sse = 0.0
+            for plane_rec, plane_src in ((rec.u, src.u), (rec.v, src.v)):
+                refs_c = intra_ops.build_reference(
+                    plane_rec, cmask, cx, cy2, cw, ch,
+                    ctrl.in_width >> 1, ctrl.in_height >> 1, bd,
+                    is_chroma=True, wpp=ctrl.cfg.wpp)
+                if m >= 81:
+                    from ..ops.cclm import predict_cclm
+                    pr = predict_cclm(m, rec.y, refs_c, coded_mask,
+                                      cx, cy2, cw, ch, ctrl.in_width,
+                                      ctrl.in_height, bd)
+                else:
+                    pr = _predict_tables(m, cw, ch, refs_c, bd, True)
+                blk = plane_src[cy2:cy2 + ch, cx:cx + cw]
+                sse += float(((blk - pr.astype(np.int64)) ** 2).sum())
+            sse += 0.0 if m == dm else 8.0
+            if best_cost is None or sse < best_cost:
+                best_m, best_cost = m, sse
+        cu = CuInfo(x, y, w, h, type=CU_INTRA, intra_mode=dm,
+                    intra_mode_chroma=best_m, qp=fs.qp)
+        reconstruct_intra_cu(cu, rec, coded_mask, ctrl, fs.qp, src,
+                             signhide=cfg.signhide_enable
+                             and not cfg.dep_quant, parts="chroma",
+                             jccr_sign=fs.jccr_sign, lmcs=lmcs,
+                             chroma_mask=chroma_mask)
+        leaf.cu = cu
+
+    def _lmcs_map_for_search(self, src_y: np.ndarray,
+                             src_planes: FramePlanes) -> np.ndarray:
+        """When LMCS is on, forward-map a padded luma plane for the
+        phase-1 search (the same derivation encode_frame will repeat —
+        deterministic, so prefetch and finalize agree)."""
+        if not self.cfg.lmcs_enable:
+            return src_y
+        ctrl = self.ctrl
+        from ..ops.lmcs import derive_frame_luts
+        w, h = ctrl.in_width, ctrl.in_height
+        u = pad_plane(src_planes.u, w >> 1, h >> 1) \
+            if src_planes.u is not None else None
+        v = pad_plane(src_planes.v, w >> 1, h >> 1) \
+            if src_planes.v is not None else None
+        luts = derive_frame_luts(src_y, u, v, ctrl.bitdepth, self.cfg.qp)
+        return src_y if luts is None else luts.fwd_lut[src_y]
+
+    # --- frame encode ----------------------------------------------------
+    def dispatch_frame_search(self, fs: FrameState,
+                              src_planes: FramePlanes):
+        """Dispatch the full intra frame search (all size classes) without
+        blocking; returns resolve() -> ctus for encode_frame(prefetch=).
+        The OWF analogue: the device searches frame N+1 while the host
+        finalizes frame N (encoderstate.c owf pipelining)."""
+        from .partition import PartitionSearch
+        ctrl = self.ctrl
+        w, h = ctrl.in_width, ctrl.in_height
+        self.frame_qp = fs.qp
+        src_y = pad_plane(src_planes.y, w, h)
+        src_y = self._lmcs_map_for_search(src_y, src_planes)
+        ps = PartitionSearch(ctrl, self.cfg, qp=fs.qp)
+        fused = self._dispatch_frame_fused(ps, src_y)
+        if fused is not None:
+            return fused
+        pend = []
+        for (w_, h_) in ps._shapes():
+            positions, gw, gh = ps._positions(max(w_, h_), w_, h_)
+            pend.append((w_, h_, positions, gw, gh,
+                         self.dispatch_blocks(src_y, w_, h_, positions)))
+        tt_pend = []
+        for s in ps.tt_parents:
+            for vert in (False, True):
+                w_, h_ = ((s >> 1), s) if vert else (s, (s >> 1))
+                positions = ps._tt_mid_positions(s, vert)
+                if positions:
+                    tt_pend.append((s, vert, positions,
+                                    self.dispatch_blocks(src_y, w_, h_,
+                                                         positions)))
+
+        def resolve():
+            import numpy as _np
+            from .partition import INF
+            pres_all = _fetch_all(
+                [rsv for (*_ign, rsv) in pend]
+                + [rsv for (*_ign, rsv) in tt_pend])
+            pres = pres_all[:len(pend)]
+            tt_pres = pres_all[len(pend):]
+            cost, mode = {}, {}
+            for (w_, h_, positions, gw, gh, rsv), pre in zip(pend, pres):
+                descs, costs_arr = rsv(pre=pre)
+                c = _np.full((gh, gw), INF)
+                m = {}
+                for k, (x, y) in enumerate(positions):
+                    c[y // h_, x // w_] = costs_arr[k]
+                    m[(x, y)] = descs[k]
+                cost[(w_, h_)] = c
+                mode[(w_, h_)] = m
+            for (s, vert, positions, rsv), pre in zip(tt_pend, tt_pres):
+                descs, costs_arr = rsv(pre=pre)
+                ps._store_tt(cost, mode, s, vert, positions,
+                             descs, costs_arr)
+            return ps._decide(cost, mode)
+
+        return resolve
+
+    def _fused_entries(self, ps):
+        """Size classes of the fused frame search with their static
+        position grids; None when the config needs per-class dispatches
+        (MIP / rough / non-grid positions). Cached: geometry depends only
+        on cfg+ctrl."""
+        from ..ops.intra_batch import grid_of_positions
+        cached = getattr(self, "_fused_entries_c", None)
+        if cached is not None:
+            return cached or None
+        if self.cfg.mip or getattr(self.cfg, "intra_rough", False):
+            self._fused_entries_c = False
+            return None
+        entries = []                    # (key-desc, w, h, positions, grid)
+        for (w_, h_) in ps._shapes():
+            positions, gw, gh = ps._positions(max(w_, h_), w_, h_)
+            g = grid_of_positions(positions, w_, h_)
+            if g is None:
+                self._fused_entries_c = False
+                return None
+            entries.append((("shape", gw, gh), w_, h_, positions, g))
+        for s in ps.tt_parents:
+            for vert in (False, True):
+                w_, h_ = ((s >> 1), s) if vert else (s, (s >> 1))
+                positions = ps._tt_mid_positions(s, vert)
+                if not positions:
+                    continue
+                g = grid_of_positions(positions, w_, h_)
+                if g is None:
+                    self._fused_entries_c = False
+                    return None
+                entries.append((("tt", s, vert), w_, h_, positions, g))
+        self._fused_entries_c = entries
+        return entries
+
+    def _resolve_fused(self, ps, entries, flat):
+        """Build cost/mode inputs from one fetched flat vector and run
+        the partition DP (shared by the 1-frame and F-frame paths)."""
+        from .partition import INF
+        ctrl = self.ctrl
+        cost, mode = {}, {}
+        off = 0
+        for (key, w_, h_, positions, g) in entries:
+            n = len(positions)
+            gx, gy = g[4], g[5]
+            best = flat[off:off + n].astype(np.int32)
+            costs_arr = flat[off + n:off + 2 * n].astype(np.float64)
+            off += 2 * n
+            if key[0] == "shape":
+                _kind, gw, gh = key
+                c = np.full((gh, gw), INF)
+                c[:gy, :gx] = costs_arr.reshape(gy, gx)
+                cost[(w_, h_)] = c
+                mode[(w_, h_)] = _GridDescs(best, g)
+            else:
+                _kind, s, vert = key
+                gh2 = -(-ctrl.in_height // s)
+                gw2 = -(-ctrl.in_width // s)
+                c = np.full((gh2, gw2), INF)
+                c[:gy, :gx] = costs_arr.reshape(gy, gx)
+                cost[("ttv" if vert else "tth", s)] = c
+                mode[("ttv" if vert else "tth", s)] = _GridDescs(best, g)
+        return ps._decide(cost, mode)
+
+    def dispatch_frames_search(self, fss: list, src_planes_list: list):
+        """Batched MULTI-FRAME search: F frames' full searches in ONE
+        dispatch and ONE result fetch (batched along the block axis) —
+        divides the per-dispatch and per-fetch overhead by F. Returns
+        a list of per-frame resolve() thunks for encode_frame(prefetch=)
+        or None when the config needs per-class dispatches."""
+        import jax
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from .partition import PartitionSearch, qp_to_lambda
+        ctrl = self.ctrl
+        w, h = ctrl.in_width, ctrl.in_height
+        ps = PartitionSearch(ctrl, self.cfg, qp=fss[0].qp)
+        entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+        if len({fs.qp for fs in fss}) != 1:
+            # the block-axis batch shares scalar qp/lambda; mixed-QP
+            # batches (RC) fall back to per-frame fused dispatches
+            return [self.dispatch_frame_search(fs, sp)
+                    for fs, sp in zip(fss, src_planes_list)]
+        fn = _get_frames_combo_fn(
+            tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries),
+            ctrl.bitdepth)
+        narrow = np.uint8 if ctrl.bitdepth <= 8 else np.int16
+        src_stack = np.stack(
+            [self._lmcs_map_for_search(pad_plane(sp.y, w, h),
+                                       sp).astype(narrow)
+             for sp in src_planes_list])
+        qp = fss[0].qp
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        outs = fn(src_stack, np.int32(ctrl.luma_qp_scaled(qp)),
+                  np.float32(qp_to_lambda(qp)), wts, _MODE_BITS)
+        state = {}
+
+        def make_resolve(f, qp_f):
+            def resolve():
+                if "flat" not in state:
+                    state["flat"] = np.asarray(outs)    # ONE fetch for F
+                ps_f = PartitionSearch(ctrl, self.cfg, qp=qp_f)
+                return self._resolve_fused(ps_f, entries,
+                                           state["flat"][f])
+            return resolve
+
+        return [make_resolve(f, fs.qp) for f, fs in enumerate(fss)]
+
+    def _dispatch_frame_fused(self, ps, src_y: np.ndarray):
+        """Single-dispatch frame search (all size classes in one jitted
+        call) when every class sits on a static position grid and no
+        per-class extra kernels (MIP/rough) are configured. Returns a
+        resolve() thunk or None (caller falls back to per-class
+        dispatches)."""
+        import jax
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        from .partition import qp_to_lambda
+        entries = self._fused_entries(ps)
+        if entries is None:
+            return None
+
+        ctrl = self.ctrl
+        classes = tuple((w_, h_, g) for (_k, w_, h_, _p, g) in entries)
+        fn = _get_frame_combo_fn(classes, ctrl.bitdepth)
+        qp = self.frame_qp
+        wts = FAST_COEFF_WTS[min(qp, len(FAST_COEFF_WTS) - 1)]
+        md = getattr(self, "_mesh_dispatch", None)
+        if md is not None:
+            narrow = np.uint8 if ctrl.bitdepth <= 8 else np.int16
+            flat0 = md.run(
+                self._mesh_slot,
+                ("frame_intra", classes, ctrl.bitdepth),
+                (src_y.astype(narrow), np.int32(ctrl.luma_qp_scaled(qp)),
+                 np.float32(qp_to_lambda(qp)), np.asarray(wts)),
+                lambda: np.asarray(fn(src_y.astype(narrow),
+                                      np.int32(ctrl.luma_qp_scaled(qp)),
+                                      np.float32(qp_to_lambda(qp)), wts,
+                                      _MODE_BITS)))
+            return lambda: self._resolve_fused(ps, entries, flat0)
+        cache = getattr(self, "_src_dev_narrow", None)
+        if cache is None or cache[0] is not src_y:
+            narrow = np.uint8 if ctrl.bitdepth <= 8 else np.int16
+            self._src_dev_narrow = (src_y,
+                                    jax.device_put(src_y.astype(narrow)))
+        outs = fn(self._src_dev_narrow[1],
+                  np.int32(ctrl.luma_qp_scaled(qp)),
+                  np.float32(qp_to_lambda(qp)), wts, _MODE_BITS)
+
+        def resolve():
+            flat = np.asarray(outs)             # ONE fetch
+            return self._resolve_fused(ps, entries, flat)
+
+        return resolve
+
+    def encode_frame(self, fs: FrameState, src_planes: FramePlanes,
+                     refs: list | None = None, prefetch=None):
+        """Returns (au_bytes, recon_planes). refs: DPB (list of
+        FramePlanes) for P slices, nearest first. prefetch: resolver from
+        dispatch_frame_search() (overlapped frame pipelining)."""
+        g = self.encode_frame_gen(fs, src_planes, refs, prefetch=prefetch)
+        rec = next(g)
+        au = next(g)
+        return au, rec
+
+    def dispatch_inter_search(self, fs: FrameState,
+                              src_planes: FramePlanes, refs,
+                              pretoken=None):
+        """Async-dispatch the fused whole-frame inter search (phase 1)
+        for an inter frame; returns a resolver usable as encode_frame's
+        `prefetch`, or None when the fused path doesn't cover this
+        config. The device crunches while the host finishes the previous
+        frame's entropy (the bounded-lag frame-pipelining analogue of
+        the reference's OWF, encoder.c:94-95)."""
+        ctrl = self.ctrl
+        rl = RefLists.from_single(refs, fs) if isinstance(refs, list) \
+            else refs
+        if not self.open_loop or fs.slicetype == SliceType.I \
+                or self.cfg.lmcs_enable:
+            return None
+        w, h = ctrl.in_width, ctrl.in_height
+        src_y = pad_plane(src_planes.y, w, h)
+        from .partition import PartitionSearch
+        ps = PartitionSearch(ctrl, self.cfg, qp=fs.qp, is_intra=False)
+        self.frame_qp = fs.qp
+        return self._dispatch_inter_frame(ps, src_y, rl, fs,
+                                          pretoken=pretoken)
+
+    def encode_frame_gen(self, fs: FrameState, src_planes: FramePlanes,
+                         refs: list | None = None, prefetch=None):
+        """Two-stage generator: first yield -> recon planes (search +
+        finalize + loop filters done; the picture can enter the DPB and
+        the next frame's search can dispatch), second yield -> au bytes
+        (entropy coding)."""
+        ctrl = self.ctrl
+        cfg = self.cfg
+        refs = refs or []
+        if isinstance(refs, list):
+            rl = RefLists.from_single(refs, fs)
+        else:
+            rl = refs
+        is_intra_slice = fs.slicetype == SliceType.I
+        if cfg.jccr:
+            # U/V residuals are typically anti-correlated; signal CSign=-1
+            # (the reference derives this per picture from residual stats)
+            fs.jccr_sign = 1
+        self.frame_qp = fs.qp
+        w, h = ctrl.in_width, ctrl.in_height
+        src = FramePlanes(
+            pad_plane(src_planes.y, w, h),
+            pad_plane(src_planes.u, w >> 1, h >> 1) if src_planes.u is not None else None,
+            pad_plane(src_planes.v, w >> 1, h >> 1) if src_planes.v is not None else None,
+        )
+        rec = FramePlanes(
+            np.zeros((h, w), dtype=np.int32),
+            np.zeros((h >> 1, w >> 1), dtype=np.int32) if src.u is not None else None,
+            np.zeros((h >> 1, w >> 1), dtype=np.int32) if src.v is not None else None,
+        )
+        coded_mask = np.zeros((-(-h // 4), -(-w // 4)), dtype=bool)
+
+        # LMCS: derive the frame model, map the luma source; recon stays
+        # in the mapped domain until the loop filters (reshape.c flow:
+        # encoderstate.c:2005-2031 fwd-maps source, :829 inverse-maps the
+        # recon before deblock). src_orig feeds ME + the filter searches.
+        src_orig = src
+        fs.lmcs = None
+        lmcs_ctx = None
+        # per-CTU QP (cu_qp_delta): VAQ offsets and/or per-LCU RC
+        # (encoderstate.c:1797-1879 VAQ; rate_control.c:1097)
+        qp_delta_on = getattr(ctrl, "qp_delta_enabled", False)
+        ctu_qps = None
+        if qp_delta_on:
+            fs.max_qp_delta_depth = 0
+            ctu_qps = getattr(fs, "ctu_qps", None)   # per-LCU RC
+            if cfg.vaq:
+                ctu_qps = vaq_ctu_qps(src_orig, cfg, ctrl, fs.qp,
+                                      base=ctu_qps)
+            elif ctu_qps is None:
+                ctu_qps = np.full(ctrl.width_in_lcu * ctrl.height_in_lcu,
+                                  fs.qp, dtype=np.int32)
+        if cfg.lmcs_enable:
+            from ..ops.lmcs import LmcsFrameCtx, derive_frame_luts
+            luts = derive_frame_luts(src.y, src.u, src.v, ctrl.bitdepth,
+                                     cfg.qp)
+            if luts is not None:
+                lmcs_ctx = LmcsFrameCtx(luts, rec.y, cfg.width, cfg.height)
+                fs.lmcs = lmcs_ctx
+                src = FramePlanes(luts.fwd_lut[src.y], src.u, src.v)
+
+        # phase 1: batched search over the CU lattice
+        if prefetch is not None:
+            ctus = prefetch()
+        elif self.open_loop:
+            from .partition import PartitionSearch
+            ps = PartitionSearch(ctrl, cfg, qp=fs.qp,
+                                 is_intra=is_intra_slice)
+            if is_intra_slice and cfg.mts not in (1, 3):
+                # one fused dispatch for all size classes when possible,
+                # else async per-class dispatches
+                self.frame_qp = fs.qp
+                fused = self._dispatch_frame_fused(ps, src.y)
+                ctus = fused() if fused is not None else ps.search_async(
+                    src.y,
+                    lambda ww, hh, pos: self.dispatch_blocks(src.y, ww, hh,
+                                                             pos))
+            elif is_intra_slice:
+                fn = lambda ww, hh, pos: self.search_blocks(src.y, ww, hh, pos)
+                ctus = ps.search(src.y, fn)
+            else:
+                # inter ME must run in the original domain (DPB refs are
+                # unmapped), so combined search uses src_orig
+                fused_i = self._dispatch_inter_frame(
+                    ps, src_orig.y, rl, fs)
+                if fused_i is not None:
+                    ctus = fused_i()
+                else:
+                    fn = lambda ww, hh, pos: self.search_combined(
+                        src_orig.y, rl, ww, hh, pos,
+                        is_b=fs.slicetype == SliceType.B)
+                    ctus = ps.search(src_orig.y, fn)
+        else:
+            ctus = []
+            for cty in range(ctrl.height_in_lcu):
+                for ctx_ in range(ctrl.width_in_lcu):
+                    ctus.append(self.build_partition(
+                        ctx_ * LCU_WIDTH, cty * LCU_WIDTH, LCU_WIDTH, LCU_WIDTH))
+            for node in ctus:
+                for leaf in node.leaves():
+                    mode = self.search_intra_mode(
+                        src.y, rec, coded_mask, leaf.x, leaf.y, leaf.w, leaf.h) \
+                        if not self.open_loop else 0
+                    leaf.cu_desc = {"type": "intra", "mode": mode}
+
+        flat_inl = None
+        if isinstance(ctus, _FlatLeaves):
+            # vectorized host-ME path: no CtuNode objects; the native
+            # finalize consumes the packed leaf array directly
+            flat_inl = ctus.inl
+            ctus = []
+
+        # coding order: raster, or tile scan when tiles are enabled (the
+        # ctus list itself stays raster-indexed: i = cy*wl + cx)
+        wl_ = ctrl.width_in_lcu
+        if ctrl.tiles_enable:
+            ctu_order = [cy * wl_ + cx for (cx, cy) in ctrl.ctu_scan_order()]
+        else:
+            ctu_order = list(range(len(ctus)))
+        leaves = [leaf for i in ctu_order for leaf in ctus[i].leaves()]
+
+        dual = bool(cfg.dual_tree) and is_intra_slice \
+            and not ctrl.tiles_enable \
+            and not (cfg.wpp and ctrl.height_in_lcu > 1)
+        ctus_c = None
+        if dual:
+            ctus_c = [self.build_chroma_tree(i % ctrl.width_in_lcu,
+                                             i // ctrl.width_in_lcu)
+                      for i in range(len(ctus))]
+
+        # phase 1b: finalize decisions + closed-loop reconstruction
+        native_recon = is_intra_slice and self.open_loop \
+            and not qp_delta_on \
+            and self.native_entropy and not cfg.mts \
+            and not ctrl.tiles_enable and not cfg.rdoq_enable \
+            and not cfg.cclm and not cfg.trskip_enable and not cfg.mip \
+            and not cfg.jccr and not cfg.dep_quant and not dual \
+            and not cfg.mrl and not cfg.isp and not cfg.ibc \
+            and ctrl.scaling_lists is None \
+            and lmcs_ctx is None
+        # whole-frame C++ entropy writer: same conditions, single substream,
+        # square leaves only (the writer encodes the QT subset of split
+        # flags; rectangular leaves imply BT/TT splits -> python tree
+        # walk). 64x64 leaves are implicit-TU-split by the writer.
+        native_tree = native_recon and not cfg.alf_type \
+            and not getattr(self, "force_python_tree", False) \
+            and all(leaf.w == leaf.h for leaf in leaves)
+        # whole-frame C++ entropy writer for P/B frames (tree.cpp
+        # tw_write_frame): intra + inter leaves with skip/merge/mvd/AMVP
+        # syntax; same per-tool gates as the intra writer
+        native_ex = (not is_intra_slice) and self.native_entropy \
+            and not qp_delta_on \
+            and not ctrl.tiles_enable and not cfg.mts \
+            and not cfg.rdoq_enable and not cfg.cclm \
+            and not cfg.trskip_enable and not cfg.mip \
+            and not cfg.jccr and not cfg.dep_quant and not cfg.mrl \
+            and not cfg.isp and not cfg.ibc and not cfg.lfnst \
+            and ctrl.scaling_lists is None and lmcs_ctx is None \
+            and not cfg.alf_type \
+            and not getattr(self, "force_python_tree", False) \
+            and all(leaf.w == leaf.h for leaf in leaves)
+        packed = None
+        packed_pb = None        # native inter finalize outputs (P/B)
+        db_maps = None
+        fused_ctx, self._fused_ctx = self._fused_ctx, None
+        if native_recon:
+            from ..native import recon_frame_native
+            for leaf in leaves:
+                leaf.cu_mode = leaf.cu_desc["mode"]
+            if native_tree:
+                larr, cbfs, c_y, c_u, c_v = recon_frame_native(
+                    rec, src, coded_mask, leaves, ctrl.luma_qp_scaled(fs.qp),
+                    ctrl.chroma_qp_scaled(fs.qp), ctrl.bitdepth,
+                    signhide=cfg.signhide_enable and not cfg.dep_quant,
+                    packed=True, wpp=cfg.wpp)
+                packed = (larr, cbfs, c_y, c_u, c_v)
+                coeffs = None
+            else:
+                coeffs, cbfs = recon_frame_native(
+                    rec, src, coded_mask, leaves, ctrl.luma_qp_scaled(fs.qp),
+                    ctrl.chroma_qp_scaled(fs.qp), ctrl.bitdepth,
+                    signhide=cfg.signhide_enable and not cfg.dep_quant,
+                    wpp=cfg.wpp)
+            if not native_tree:
+                for i, leaf in enumerate(leaves):
+                    cu = CuInfo(leaf.x, leaf.y, leaf.w, leaf.h,
+                                type=CU_INTRA,
+                                intra_mode=leaf.cu_desc["mode"],
+                                intra_mode_chroma=leaf.cu_desc["mode"],
+                                qp=fs.qp)
+                    tn_x = max(1, leaf.w // TR_MAX_WIDTH)
+                    tn_y = max(1, leaf.h // TR_MAX_WIDTH)
+                    t = 0
+                    for ty_i in range(tn_y):
+                        for tx_i in range(tn_x):
+                            for color in (0, 1, 2):
+                                cu.cbf[(color, tx_i, ty_i)] = \
+                                    int(cbfs[i, color] >> t) & 1
+                                if coeffs is not None and \
+                                        (color, tx_i, ty_i) in coeffs[i]:
+                                    cu.coeffs[(color, tx_i, ty_i)] = \
+                                        coeffs[i][(color, tx_i, ty_i)]
+                            t += 1
+                    leaf.cu = cu
+        elif dual:
+            # per CTU: luma tree (luma recon only), then the chroma tree;
+            # chroma availability follows the CHROMA pass order
+            chroma_mask = np.zeros_like(coded_mask)
+            cu_map = CuMap(ctrl.in_width, ctrl.in_height)
+            sh = cfg.signhide_enable and not cfg.dep_quant
+            from .partition import qp_to_lambda
+            rdl = qp_to_lambda(fs.qp) if cfg.rdoq_enable else 0.0
+            for i in ctu_order:
+                for leaf in ctus[i].leaves():
+                    d = leaf.cu_desc
+                    cu = CuInfo(leaf.x, leaf.y, leaf.w, leaf.h,
+                                type=CU_INTRA, intra_mode=d["mode"],
+                                intra_mode_chroma=d["mode"],
+                                mip_flag=bool(d.get("mip")),
+                                mip_transposed=bool(d.get("mip_t")),
+                                tr_idx=d.get("tr_idx", 0), qp=fs.qp)
+                    reconstruct_intra_cu(cu, rec, coded_mask, ctrl, fs.qp,
+                                         src, signhide=sh, rdoq_lam=rdl,
+                                         parts="luma", lmcs=lmcs_ctx)
+                    if cfg.isp and not cu.mip_flag and lmcs_ctx is None:
+                        try_isp_modes(cu, rec, coded_mask, ctrl, fs.qp,
+                                      src, qp_to_lambda(fs.qp),
+                                      signhide=sh, rdoq_lam=rdl)
+                    cu_map.set_cu(cu)
+                    leaf.cu = cu
+                for leaf in ctus_c[i].leaves():
+                    self._finalize_chroma_cu(leaf, fs, src, rec,
+                                             coded_mask, cu_map,
+                                             lmcs=lmcs_ctx,
+                                             chroma_mask=chroma_mask)
+        else:
+            done_native = False
+            if flat_inl is not None:
+                from ..native import finalize_inter_frame_native
+                from .inter_cand import TmvpCtx
+                from .partition import qp_to_lambda
+                uniq_c, refmap_c, l1_index_c, _fsrc, _ffs = fused_ctx
+                tmvp_c = TmvpCtx.from_reflists(rl, fs.poc) \
+                    if cfg.tmvp_enable else None
+                num_ref_merge_c = min(len(rl.l0), len(rl.l1)) \
+                    if fs.slicetype == SliceType.B else len(rl.l0)
+                res = finalize_inter_frame_native(
+                    rec, src, coded_mask, None, rl, uniq_c,
+                    refmap_c, l1_index_c, tmvp_c, fs.poc,
+                    ctrl.luma_qp_scaled(fs.qp),
+                    ctrl.chroma_qp_scaled(fs.qp), ctrl.bitdepth,
+                    cfg.signhide_enable and not cfg.dep_quant,
+                    fs.slicetype == SliceType.B, bool(cfg.bipred),
+                    cfg.max_merge, num_ref_merge_c,
+                    cfg.log2_parallel_merge_level,
+                    qp_to_lambda(fs.qp), bool(cfg.wpp),
+                    want_motion=bool(cfg.tmvp_enable), inl=flat_inl)
+                packed_pb, db_maps, motion_c = res
+                if motion_c is not None:
+                    rec.motion = motion_c
+                done_native = True
+            if not done_native and not is_intra_slice \
+                    and fused_ctx is not None:
+                # whole-frame native finalize (inter.cpp): qpel refine +
+                # merge/AMVP screening + recon + deblock maps + TMVP
+                # field in ONE C++ call (the per-LCU worker role of
+                # encoderstate.c:734-860)
+                uniq_c, refmap_c, l1_index_c, _fsrc, _ffs = fused_ctx
+                if all(leaf.w == leaf.h for leaf in leaves) \
+                        and not getattr(self, "force_python_tree", False):
+                    from ..native import finalize_inter_frame_native
+                    from .inter_cand import TmvpCtx
+                    from .partition import qp_to_lambda
+                    tmvp_c = TmvpCtx.from_reflists(rl, fs.poc) \
+                        if cfg.tmvp_enable else None
+                    num_ref_merge_c = min(len(rl.l0), len(rl.l1)) \
+                        if fs.slicetype == SliceType.B else len(rl.l0)
+                    res = finalize_inter_frame_native(
+                        rec, src, coded_mask, leaves, rl, uniq_c,
+                        refmap_c, l1_index_c, tmvp_c, fs.poc,
+                        ctrl.luma_qp_scaled(fs.qp),
+                        ctrl.chroma_qp_scaled(fs.qp), ctrl.bitdepth,
+                        cfg.signhide_enable and not cfg.dep_quant,
+                        fs.slicetype == SliceType.B, bool(cfg.bipred),
+                        cfg.max_merge, num_ref_merge_c,
+                        cfg.log2_parallel_merge_level,
+                        qp_to_lambda(fs.qp), bool(cfg.wpp),
+                        want_motion=bool(cfg.tmvp_enable))
+                    if res is not None:
+                        packed_pb, db_maps, motion_c = res
+                        if motion_c is not None:
+                            rec.motion = motion_c
+                        done_native = True
+                if not done_native:
+                    # python fallback: run the refine the fused resolve()
+                    # deferred, then the sequential python finalize
+                    self._refine_inter_leaves(ctus, uniq_c, refmap_c,
+                                              l1_index_c, _fsrc, _ffs)
+            if not done_native:
+                fin_cu_map = self._finalize_sequential(leaves, fs, src,
+                                                       rec, coded_mask,
+                                                       rl, lmcs=lmcs_ctx,
+                                                       ctu_qps=ctu_qps)
+                if cfg.tmvp_enable and not is_intra_slice:
+                    from .inter_cand import build_motion_field
+                    rec.motion = build_motion_field(fin_cu_map, rl.pocs0,
+                                                    rl.pocs1)
+        if cfg.tmvp_enable and rec.motion is None:
+            # intra pictures carry an all-intra field so they can serve
+            # as (candidate-free) collocated references
+            from .inter_cand import MotionField
+            h8 = -(-(-(-h // 4)) // 2)
+            w8 = -(-(-(-w // 4)) // 2)
+            rec.motion = MotionField(
+                dir=np.zeros((h8, w8), dtype=np.int8),
+                mv=np.zeros((h8, w8, 2, 2), dtype=np.int32),
+                ref_poc=np.zeros((h8, w8, 2), dtype=np.int32))
+
+        # estimated-vs-actual bits audit input (the
+        # check_cabac_state_consistency.py analogue for the model-based
+        # two-phase design, SURVEY §4): fractional coefficient bits from
+        # the SAME bucket model the search used (--fast-residual-cost,
+        # rdo.c:396-465); tools/encode.py logs it against the real AU
+        # bits per frame in --stats-file
+        from ..ops.fast_cost_tables import FAST_COEFF_WTS
+        _wts = FAST_COEFF_WTS[min(fs.qp, len(FAST_COEFF_WTS) - 1)]
+        _audit = getattr(cfg, "stats_audit", False)
+
+        def _bucket_bits(arr):
+            if arr is None or arr.size == 0:
+                return 0.0
+            lv = np.minimum(np.abs(arr.astype(np.int64)), 3)
+            return float(np.asarray(_wts, dtype=np.float64)[lv].sum())
+
+        if not _audit:
+            pass
+        elif packed_pb is not None:
+            fs.est_coeff_bits = (_bucket_bits(packed_pb[2])
+                                 + _bucket_bits(packed_pb[3])
+                                 + _bucket_bits(packed_pb[4]))
+        elif packed is not None:
+            fs.est_coeff_bits = (_bucket_bits(packed[2])
+                                 + _bucket_bits(packed[3])
+                                 + _bucket_bits(packed[4]))
+        else:
+            tot = 0.0
+            for leaf in leaves:
+                cu = getattr(leaf, "cu", None)
+                if cu is None:
+                    continue
+                for co in cu.coeffs.values():
+                    tot += _bucket_bits(np.asarray(co))
+            fs.est_coeff_bits = tot
+
+        # bake the final per-CU QPs (set_cu_qps) before deblock; the
+        # writer and the oracle re-derive the same values from the
+        # signaled deltas
+        qp4_map = None
+        if qp_delta_on:
+            qp4_map = assign_cu_qps(leaves, ctrl, fs.qp)
+
+        # LMCS: inverse-map the recon luma before the loop filters
+        # (encoderstate.c:829-840); deblock/SAO/ALF and the DPB operate in
+        # the original domain
+        if lmcs_ctx is not None:
+            rec.y[:] = lmcs_ctx.luts.inv_lut[rec.y]
+
+        # in-loop filters
+        if cfg.deblock_enable:
+            from ..native import deblock_frame_native
+            if db_maps is not None:
+                # per-4x4 maps pre-built by the native finalize
+                from ..native import deblock_frame_maps_native
+                deblock_frame_maps_native(rec, db_maps, fs.qp,
+                                          ctrl.get_chroma_qp(fs.qp),
+                                          cfg.deblock_beta, cfg.deblock_tc,
+                                          ctrl.bitdepth)
+            elif packed is not None:
+                deblock_frame_native(rec, None, fs.qp,
+                                     ctrl.get_chroma_qp(fs.qp),
+                                     cfg.deblock_beta, cfg.deblock_tc,
+                                     ctrl.bitdepth,
+                                     packed=(packed[0], packed[1]))
+            else:
+                all_cus = [leaf.cu for node in ctus for leaf in node.leaves()]
+                cus_c = None
+                if ctus_c is not None:
+                    # dual tree: chroma edges follow the chroma-tree CUs
+                    cus_c = [leaf.cu for node in ctus_c
+                             for leaf in node.leaves()]
+                cqp_lut = [ctrl.get_chroma_qp(q) for q in range(64)] \
+                    if qp4_map is not None else None
+                deblock_frame_native(rec, all_cus, fs.qp,
+                                     ctrl.get_chroma_qp(fs.qp),
+                                     cfg.deblock_beta, cfg.deblock_tc,
+                                     ctrl.bitdepth,
+                                     ref_pocs=[rl.pocs0, rl.pocs1],
+                                     cus_chroma=cus_c,
+                                     qp_map=qp4_map, cqp_lut=cqp_lut)
+        sao_luma = sao_chroma = None
+        if cfg.sao_type:
+            from .partition import qp_to_lambda
+            from .sao import sao_apply_frame, sao_search_frame
+            sao_luma, sao_chroma = sao_search_frame(
+                src_orig, rec, ctrl, qp_to_lambda(fs.qp), ctrl.bitdepth)
+            sao_apply_frame(rec, sao_luma, sao_chroma, ctrl, ctrl.bitdepth)
+        fs.alf = None
+        if cfg.alf_type:
+            from .alf import (alf_apply_frame, alf_search_frame,
+                              cc_alf_apply, cc_alf_search)
+            from .partition import qp_to_lambda
+            if fs.pictype in (NalType.IDR_W_RADL, NalType.IDR_N_LP):
+                # closed GOP: don't reference pre-IDR APS ids
+                self.alf_pool.clear()
+            fs.alf = alf_search_frame(src_orig, rec, ctrl,
+                                      qp_to_lambda(fs.qp), ctrl.bitdepth,
+                                      aps_pool=list(self.alf_pool.values()))
+            if fs.alf.luma_enabled and fs.alf.new_aps:
+                fs.alf.aps_id = self.alf_next_aps
+                self.alf_next_aps = (self.alf_next_aps + 1) % 8
+            pre_alf_luma = rec.y.copy() if cfg.alf_type == 2 else None
+            alf_apply_frame(rec, fs.alf, ctrl, ctrl.bitdepth)
+            if cfg.alf_type == 2 and fs.alf.luma_enabled:
+                # CC-ALF corrections from the pre-ALF (SAO output) luma,
+                # applied on top of the ALF chroma output; a reuse frame
+                # keeps the referenced APS's CC coefficients
+                fixed = None if fs.alf.new_aps \
+                    else self.alf_pool.get(fs.alf.aps_id)
+                cc_alf_search(src_orig, rec, pre_alf_luma, fs.alf, ctrl,
+                              qp_to_lambda(fs.qp), ctrl.bitdepth,
+                              fixed_from=fixed)
+                cc_alf_apply(rec, pre_alf_luma, fs.alf, ctrl, ctrl.bitdepth)
+            if fs.alf.luma_enabled and fs.alf.new_aps:
+                self.alf_pool[fs.alf.aps_id] = fs.alf
+
+        # recon is final: publish it (DPB insert + next-frame dispatch
+        # happen in the caller) before the host-only entropy phase
+        yield rec
+
+        # phase 2: entropy coding
+        au = Bitstream()
+        if cfg.aud_enable:
+            headers.write_aud(au, fs)
+        if fs.num == 0:
+            headers.write_parameter_sets(au, ctrl)
+        if cfg.vui_frame_field_info:
+            headers.write_pic_timing_sei(au, fs)
+        if ctrl.scaling_lists is not None and fs.num == 0:
+            from ..hls.scaling_list_syntax import write_scaling_aps
+            headers.nal_write(au, NalType.PREFIX_APS_NUT, 0,
+                              long_start_code=False)
+            write_scaling_aps(au, ctrl.scaling_lists)
+        if lmcs_ctx is not None:
+            # fresh LMCS model every picture, APS id 0 (reshape.c
+            # uvg_encode_lmcs_adaptive_parameter_set:1395)
+            headers.nal_write(au, NalType.PREFIX_APS_NUT, 0,
+                              long_start_code=False)
+            headers.write_lmcs_aps(au, lmcs_ctx.luts,
+                                   ctrl.chroma_format != 0)
+        if fs.alf is not None and fs.alf.new_aps \
+                and (fs.alf.luma_enabled or fs.alf.cb_enabled
+                     or fs.alf.cr_enabled
+                     or fs.alf.cc_cb_enabled
+                     or fs.alf.cc_cr_enabled):
+            from ..hls.alf_syntax import write_alf_aps
+            headers.nal_write(au, NalType.PREFIX_APS_NUT, 0,
+                              long_start_code=fs.num == 0)
+            write_alf_aps(au, fs.alf, ctrl.chroma_format != 0)
+        headers.nal_write(au, fs.pictype, 0, long_start_code=fs.num != 0)
+
+        from ..bitstream.ctx_tables import OFF as CTX_OFF
+        from .sao import encode_sao_ctu
+
+        def make_cabac(zerocount=0):
+            if self.native_entropy:
+                from ..native import NativeCabac
+                return NativeCabac(zerocount=zerocount)
+            return Cabac(Bitstream())
+
+        def cabac_bytes(cabac):
+            if self.native_entropy:
+                return cabac.bytes()
+            return cabac.stream.bytes()
+
+        writer = CodingTreeWriter(make_cabac(), cfg, ctrl, is_irap=fs.is_irap,
+                                  is_intra_slice=is_intra_slice,
+                                  num_ref=(len(rl.l0), len(rl.l1)),
+                                  is_b_slice=fs.slicetype == SliceType.B)
+        if qp_delta_on:
+            writer.enable_qp_delta(fs.qp)
+        wl = ctrl.width_in_lcu
+
+        if ctrl.tiles_enable:
+            writer.cu_map.set_tile_map(ctrl)
+        wpp = cfg.wpp and ctrl.height_in_lcu > 1 and not ctrl.tiles_enable
+        if ctrl.tiles_enable:
+            # one CABAC substream per tile: fresh context init at each tile
+            # start, entry-point offsets in the slice header (the tile
+            # analogue of encoder_state_write_bitstream_children,
+            # encoderstate.c:880-960)
+            substreams = []
+            n_tiles = cfg.tiles_width_count * cfg.tiles_height_count
+            for t in range(n_tiles):
+                cabac = make_cabac()
+                cabac.init_contexts(fs.qp, fs.slicetype)
+                writer.cabac = cabac
+                writer.cu_map.cur_tile = t
+                x0, y0, _x1, _y1 = ctrl.tile_bounds_px(t)
+                for (cx, cy) in ctrl.tile_ctus(t):
+                    i = cy * wl + cx
+                    if sao_luma is not None:
+                        encode_sao_ctu(cabac, CTX_OFF,
+                                       cx - x0 // LCU_WIDTH,
+                                       cy - y0 // LCU_WIDTH,
+                                       sao_luma[i],
+                                       sao_chroma[i] if ctrl.chroma_format
+                                       else None, ctrl.bitdepth)
+                    if fs.alf is not None:
+                        from ..hls.alf_syntax import encode_alf_ctu
+                        encode_alf_ctu(cabac, CTX_OFF, i, wl, fs.alf)
+                    writer.encode_ctu(ctus[i])
+                cabac.encode_bin_trm(1)
+                cabac.finish()
+                cabac.put(1, 1)
+                cabac.align_zero()
+                substreams.append(cabac_bytes(cabac))
+            if cfg.slices & 1:
+                # --slices tiles: one VCL NAL per tile, each with a
+                # full PH-in-SH slice header and no entry points (uvg
+                # 'independent' slices, encoder_state-bitstream.c:1248;
+                # tiles map to slices in decode order)
+                for t, b in enumerate(substreams):
+                    if t > 0:
+                        headers.nal_write(au, fs.pictype, 0,
+                                          long_start_code=False)
+                    headers.write_slice_header(au, ctrl, fs, [len(b)])
+                    au.buf.extend(b)
+                    au.zerocount = 0
+            else:
+                headers.write_slice_header(au, ctrl, fs,
+                                           [len(b) for b in substreams])
+                for b in substreams:
+                    au.buf.extend(b)
+                au.zerocount = 0
+        elif wpp:
+            # one CABAC substream per CTU row; contexts inherited from the
+            # state after the first CTU of the row above (WPP,
+            # encoderstate.c:966-975, :921-940)
+            substreams = []
+            if packed is not None or packed_pb is not None or native_ex:
+                # whole-frame C++ WPP writer: all rows in one native call
+                from ..native import (NativeCabac, pack_frame_leaves,
+                                      write_frame_native,
+                                      write_intra_wpp_native)
+                rows = []
+                for _r in range(ctrl.height_in_lcu):
+                    cb = NativeCabac(zerocount=0)
+                    cb.init_contexts(fs.qp, fs.slicetype)
+                    rows.append(cb)
+                if packed is not None:
+                    larr, cbfs_, c_y, c_u, c_v = packed
+                    write_intra_wpp_native(rows, larr, cbfs_, c_y, c_u,
+                                           c_v, ctrl, cfg, sao_luma,
+                                           sao_chroma)
+                else:
+                    if packed_pb is not None:
+                        larr, cbfs_, c_y, c_u, c_v = packed_pb
+                    else:
+                        larr, cbfs_, c_y, c_u, c_v = pack_frame_leaves(
+                            [leaf.cu for leaf in leaves],
+                            has_chroma=ctrl.chroma_format != 0)
+                    write_frame_native(
+                        rows, 1, larr, cbfs_, c_y, c_u, c_v, ctrl, cfg,
+                        sao_luma, sao_chroma, is_intra_slice,
+                        fs.slicetype == SliceType.B,
+                        (len(rl.l0), len(rl.l1)), fs_is_irap=fs.is_irap)
+                for cb in rows:
+                    cb.encode_bin_trm(1)
+                    cb.finish()
+                    cb.put(1, 1)
+                    cb.align_zero()
+                    substreams.append(cb.bytes())
+            else:
+                snapshot = None
+                ctu_bits = np.zeros(len(ctus)) if qp_delta_on else None
+                for row in range(ctrl.height_in_lcu):
+                    cabac = make_cabac()
+                    cabac.init_contexts(fs.qp, fs.slicetype)
+                    if row > 0 and snapshot is not None:
+                        cabac.load_ctx(snapshot)
+                    writer.cabac = cabac
+                    for col in range(wl):
+                        i = row * wl + col
+                        b0 = _cabac_bitpos(cabac) if qp_delta_on else 0
+                        if sao_luma is not None:
+                            encode_sao_ctu(cabac, CTX_OFF, col, row,
+                                           sao_luma[i],
+                                           sao_chroma[i] if ctrl.chroma_format
+                                           else None, ctrl.bitdepth)
+                        if fs.alf is not None:
+                            from ..hls.alf_syntax import encode_alf_ctu
+                            encode_alf_ctu(cabac, CTX_OFF, i, wl, fs.alf)
+                        writer.encode_ctu(ctus[i])
+                        if qp_delta_on:
+                            ctu_bits[i] = _cabac_bitpos(cabac) - b0
+                        if col == 0:
+                            snapshot = cabac.save_ctx()
+                    cabac.encode_bin_trm(1)
+                    cabac.finish()
+                    cabac.put(1, 1)
+                    cabac.align_zero()
+                    substreams.append(cabac_bytes(cabac))
+                if qp_delta_on:
+                    fs.ctu_bits = ctu_bits
+            headers.write_slice_header(au, ctrl, fs,
+                                       [len(b) for b in substreams])
+            # substreams are already escaped; every substream ends with a
+            # nonzero byte (stop bit), so raw concatenation is safe
+            for b in substreams:
+                au.buf.extend(b)
+            au.zerocount = 0
+        else:
+            headers.write_slice_header(au, ctrl, fs)
+            if self.native_entropy:
+                from ..native import NativeCabac
+                cabac = NativeCabac(zerocount=au.zerocount)
+            else:
+                cabac = Cabac(au)
+            cabac.init_contexts(fs.qp, fs.slicetype)
+            writer.cabac = cabac
+            if packed is not None:
+                # whole-frame C++ tree writer (tree.cpp): one native call
+                # replaces the per-bin Python walk
+                from ..native import write_intra_frame_native
+                larr, cbfs, c_y, c_u, c_v = packed
+                write_intra_frame_native(cabac, larr, cbfs, c_y, c_u, c_v,
+                                         ctrl, cfg, sao_luma, sao_chroma)
+            elif packed_pb is not None or native_ex:
+                from ..native import pack_frame_leaves, write_frame_native
+                if packed_pb is not None:
+                    larr, cbfs_, c_y, c_u, c_v = packed_pb
+                else:
+                    larr, cbfs_, c_y, c_u, c_v = pack_frame_leaves(
+                        [leaf.cu for leaf in leaves],
+                        has_chroma=ctrl.chroma_format != 0)
+                write_frame_native(
+                    [cabac], 0, larr, cbfs_, c_y, c_u, c_v, ctrl, cfg,
+                    sao_luma, sao_chroma, is_intra_slice,
+                    fs.slicetype == SliceType.B,
+                    (len(rl.l0), len(rl.l1)), fs_is_irap=fs.is_irap)
+            else:
+                ctu_bits = np.zeros(len(ctus)) if qp_delta_on else None
+                for i, node in enumerate(ctus):
+                    b0 = _cabac_bitpos(cabac) if qp_delta_on else 0
+                    if sao_luma is not None:
+                        encode_sao_ctu(cabac, CTX_OFF, i % wl, i // wl,
+                                       sao_luma[i],
+                                       sao_chroma[i] if ctrl.chroma_format
+                                       else None, ctrl.bitdepth)
+                    if fs.alf is not None:
+                        from ..hls.alf_syntax import encode_alf_ctu
+                        encode_alf_ctu(cabac, CTX_OFF, i, wl, fs.alf)
+                    if ctus_c is not None:
+                        writer.encode_ctu(node, tree_type=1)
+                        writer.encode_ctu(ctus_c[i], tree_type=2)
+                    else:
+                        writer.encode_ctu(node)
+                    if qp_delta_on:
+                        ctu_bits[i] = _cabac_bitpos(cabac) - b0
+                if qp_delta_on:
+                    fs.ctu_bits = ctu_bits
+            cabac.encode_bin_trm(1)
+            cabac.finish()
+            if self.native_entropy:
+                cabac.put(1, 1)
+                cabac.align_zero()
+                cabac.flush_into(au)
+            else:
+                au.put(1, 1)
+                au.align_zero()
+
+        if cfg.hash:
+            headers.write_checksum_sei(
+                au, [p for p in (rec.y, rec.u, rec.v) if p is not None],
+                ctrl.chroma_format, ctrl.bitdepth,
+                hash_type=0 if cfg.hash == 2 else 2)
+        yield au.bytes()
+
+
+class Encoder:
+    """Top-level encoder: GOP structure, input reordering, DPB management
+    (the analogue of uvg266_encode + uvg_encoder_feed_frame +
+    encoder_prepare: uvg266.c:244, input_frame_buffer.c:66,
+    encoderstate.c:2101). Supports all-intra, low-delay P/B, and
+    random-access B-pyramid (GOP8)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.ctrl = EncoderControl(cfg)
+        self.slice_enc = SliceEncoder(cfg, self.ctrl)
+        self.dpb: list = []        # most recent first (low-delay)
+        self.poc = 0
+        # random-access state
+        self.ra = cfg.gop_len > 0 and not cfg.gop_lowdelay
+        self.pending: dict = {}    # poc -> source FramePlanes
+        self.dpb_by_poc: dict = {} # poc -> recon
+        self.display_idx = 0
+        self.feed_count = 0
+        self.poc_base = 0
+        from .rate_control import RateControl
+        self.rc = RateControl(cfg, self.ctrl)
+        self._pending = None       # frame generator awaiting entropy
+        self._pend_a = None        # LD 2-in-flight: gen awaiting M+R
+        self._exec = None          # entropy worker (lazy)
+        # --owf 0 disables the one-frame-lag pipeline (reference flag:
+        # cfg.owf; auto/-1 and >0 enable it — the host entropy of frame
+        # N-1 overlaps the device search of frame N)
+        self.owf = cfg.owf != 0
+
+    # --- one-frame-lag pipeline ------------------------------------------
+    # Overlap the HOST entropy coding of frame N-1 with the DEVICE search
+    # of frame N (the bounded-lag OWF analogue of the reference,
+    # encoder.c:94-95): each frame is a 3-stage generator
+    # (dispatch -> recon/filters -> entropy); stage order across frames is
+    # dispatch(N), entropy(N-1), recon(N).
+    def _pipe_step(self, g, deep: bool = False) -> list:
+        out = []
+        if self.rc.enabled or not self.owf:
+            # rate control needs frame N-1's actual bits before frame N's
+            # QP decision: run strictly sequentially
+            out.extend(self._pipe_flush_all())
+            next(g)
+            next(g)
+            out.append(next(g))
+            return out
+        if not deep:
+            next(g)                        # stage 0: async search dispatch
+            out.extend(self._pipe_flush())  # entropy of the previous frame
+            next(g)                   # phase A: resolve+finalize+filters
+            self._pending = g
+            return out
+        # two frames in flight (LD): frame N's source-only stage D runs
+        # BEFORE frame N-1's stage M+R, so the device gets a full
+        # pipeline cycle for N's intra screening; frame N-2's entropy
+        # (native, GIL-releasing) runs on a worker thread concurrently
+        # with N-1's M+R
+        next(g)                            # stage D of frame N
+        fut = None
+        if self._pending is not None:
+            gp, self._pending = self._pending, None
+            if self._exec is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._exec = ThreadPoolExecutor(1)
+            fut = self._exec.submit(next, gp)   # stage E of frame N-2
+        if self._pend_a is not None:
+            ga, self._pend_a = self._pend_a, None
+            next(ga)                       # stage M+R of frame N-1
+            self._pending = ga
+        self._pend_a = g
+        if fut is not None:
+            out.append(fut.result())
+        return out
+
+    def _pipe_flush(self) -> list:
+        if self._pending is None:
+            return []
+        g, self._pending = self._pending, None
+        return [next(g)]
+
+    def _pipe_flush_all(self) -> list:
+        out = self._pipe_flush()
+        if self._pend_a is not None:
+            ga, self._pend_a = self._pend_a, None
+            next(ga)
+            self._pending = ga
+            out.extend(self._pipe_flush())
+        return out
+
+    # --- streaming API (reordering-aware) --------------------------------
+    def feed(self, src: FramePlanes) -> list:
+        """Feed one source frame in display order; returns zero or more
+        encoded results [(au, rec, fs, refs, src), ...] in coding order."""
+        if not self.ra:
+            i = self.feed_count
+            self.feed_count += 1
+            return self._pipe_step(self._encode_ld_gen(i, src), deep=True)
+        out = []
+        p = self.display_idx
+        self.display_idx += 1
+        if p == 0 or (self.cfg.intra_period > 1
+                      and p % self.cfg.intra_period == 0):
+            # IDR resets POC and the DPB (closed GOP)
+            self.pending = {}
+            self.dpb_by_poc = {}
+            self.poc_base = p
+            out.extend(self._pipe_step(self._encode_ra_idr_gen(src)))
+            return out
+        self.pending[p - self.poc_base] = src
+        out.extend(self._drain_ra(final=False))
+        return out
+
+    def _encode_ra_idr_gen(self, src: FramePlanes):
+        from ..gop import frame_qp
+        fs = FrameState(num=self.feed_count, poc=0,
+                        qp=frame_qp(self.cfg, None),
+                        pictype=NalType.IDR_W_RADL,
+                        slicetype=SliceType.I)
+        self.feed_count += 1
+        if self.rc.enabled:
+            fs.qp, _ = self.rc.pick_qp(fs, None)
+            fs.ctu_qps = self.rc.pick_ctu_qps(
+                fs, self.ctrl.width_in_lcu * self.ctrl.height_in_lcu)
+        prefetch = self.slice_enc.dispatch_frame_search(fs, src) \
+            if self.slice_enc.open_loop and self.cfg.mts not in (1, 3) \
+            else None
+        yield None
+        g = self.slice_enc.encode_frame_gen(fs, src, [], prefetch=prefetch)
+        rec = next(g)
+        self.dpb_by_poc[0] = rec
+        yield rec
+        au = next(g)
+        self.rc.update(fs, len(au) * 8,
+                       distortion=_rc_distortion(rec, src)
+                       if self.rc.enabled else None)
+        yield (au, rec, fs, RefLists([], [], [], []), src)
+
+    def flush(self) -> list:
+        if not self.ra:
+            return self._pipe_flush_all()
+        out = self._drain_ra(final=True)
+        out.extend(self._pipe_flush_all())
+        return out
+
+    def _drain_ra(self, final: bool) -> list:
+        from ..gop import get_gop_config
+        gop = get_gop_config(self.cfg)
+        glen = self.cfg.gop_len
+        out = []
+        while True:
+            coded_any = False
+            # find the first GOP whose anchor is pending
+            anchors = sorted(poc for poc in self.pending)
+            if not anchors:
+                break
+            gop_start = ((anchors[0] - 1) // glen) * glen
+            complete = all((gop_start + e.poc_offset) in self.pending
+                           or (gop_start + e.poc_offset) in self.dpb_by_poc
+                           for e in gop)
+            if complete:
+                for e in gop:
+                    p = gop_start + e.poc_offset
+                    if p not in self.pending:
+                        continue
+                    out.extend(self._pipe_step(
+                        self._encode_ra_frame_gen(p, e)))
+                    coded_any = True
+            elif final:
+                # truncated tail GOP: keep the pyramid structure — walk the
+                # same entries in coding order, skipping absent POCs;
+                # _encode_ra_frame filters each entry's refs to pictures
+                # that exist (the reference flushes end-of-sequence the
+                # same way: poc4/2/1/3... at their table QPs)
+                for e in gop:
+                    p = gop_start + e.poc_offset
+                    if p in self.pending:
+                        out.extend(self._pipe_step(
+                            self._encode_ra_frame_gen(p, e)))
+                        coded_any = True
+                # safety net: anything not covered by an entry
+                for p in sorted(self.pending):
+                    if ((p - 1) // glen) * glen == gop_start:
+                        out.extend(self._pipe_step(
+                            self._encode_ra_frame_gen(p, None)))
+                        coded_any = True
+            if not coded_any:
+                break
+        return out
+
+    def _encode_ra_frame_gen(self, p: int, entry):
+        cfg = self.cfg
+        src = self.pending.pop(p)
+        coded = sorted(self.dpb_by_poc)
+        if entry is not None:
+            neg = [p - d for d in entry.ref_neg
+                   if (p - d) in self.dpb_by_poc]
+            pos = [p + d for d in entry.ref_pos
+                   if (p + d) in self.dpb_by_poc]
+            from ..gop import frame_qp
+            qp = frame_qp(cfg, entry)
+        else:
+            neg, pos = [], []
+            qp = min(cfg.qp + 1, 51)
+        if not neg:
+            below = [c for c in coded if c < p]
+            if below:
+                neg = [below[-1]]
+        slicetype = SliceType.B if pos else SliceType.P
+        fs = FrameState(num=self.feed_count, poc=p,
+                        pictype=NalType.TRAIL, slicetype=slicetype, qp=qp,
+                        ref_pocs_neg=tuple(p - q for q in sorted(neg,
+                                                                 reverse=True)),
+                        ref_pocs_pos=tuple(q - p for q in sorted(pos)))
+        l0 = [self.dpb_by_poc[q] for q in sorted(neg, reverse=True)]
+        pocs0 = sorted(neg, reverse=True)
+        if pos:
+            l1 = [self.dpb_by_poc[q] for q in sorted(pos)]
+            pocs1 = sorted(pos)
+        else:
+            l1, pocs1 = list(l0), list(pocs0)
+        rl = RefLists(l0=l0, l1=l1, pocs0=pocs0, pocs1=pocs1)
+        if self.rc.enabled:
+            gop_pos = ((p - 1) % self.cfg.gop_len) + 1 if entry else None
+            fs.qp, _ = self.rc.pick_qp(fs, gop_pos)
+            fs.ctu_qps = self.rc.pick_ctu_qps(
+                fs, self.ctrl.width_in_lcu * self.ctrl.height_in_lcu)
+        self.feed_count += 1
+        prefetch = self.slice_enc.dispatch_inter_search(fs, src, rl)
+        yield None
+        g = self.slice_enc.encode_frame_gen(fs, src, rl, prefetch=prefetch)
+        rec = next(g)
+        self.dpb_by_poc[p] = rec
+        # evict pictures no longer needed
+        for q in [q for q in self.dpb_by_poc if q < p - 2 * self.cfg.gop_len]:
+            del self.dpb_by_poc[q]
+        yield rec
+        au = next(g)
+        self.rc.update(fs, len(au) * 8,
+                       distortion=_rc_distortion(rec, src)
+                       if self.rc.enabled else None)
+        yield (au, rec, fs, rl, src)
+
+    def encode_frame(self, frame_idx: int, src: FramePlanes,
+                     prefetch=None):
+        g = self._encode_ld_gen(frame_idx, src, prefetch=prefetch)
+        next(g)
+        next(g)
+        au, rec, fs, refs, _src = next(g)
+        return au, rec, fs, refs
+
+    def _encode_ld_gen(self, frame_idx: int, src: FramePlanes,
+                       prefetch=None):
+        """Stage D (source-only device dispatch) / stage M+R (ME +
+        resolve + finalize + filters) / stage E (entropy). Stage D reads
+        NO mutable encoder state (poc derived from frame_idx), so the
+        two-in-flight pipeline can run frame N's stage D before frame
+        N-1's stage M+R — the device computes N's intra screening for a
+        whole pipeline cycle (the OWF source-side analogue)."""
+        cfg = self.cfg
+        intra_period = cfg.intra_period
+        is_idr = frame_idx == 0 or (
+            intra_period > 1 and frame_idx % intra_period == 0)
+        all_intra = cfg.gop_len == 0 and intra_period <= 1
+        if all_intra:
+            is_idr = True
+        from ..gop import frame_qp, get_gop_config
+        period = intra_period if intra_period > 1 else 0
+        poc = 0 if is_idr else (frame_idx % period if period else frame_idx)
+        if is_idr:
+            fs = FrameState(num=frame_idx, poc=0,
+                            qp=frame_qp(cfg, None),
+                            pictype=NalType.IDR_W_RADL,
+                            slicetype=SliceType.I)
+        else:
+            qp = cfg.qp
+            if cfg.gop_len:
+                gop = get_gop_config(cfg)
+                entry = gop[(poc - 1) % cfg.gop_len]
+                qp = frame_qp(cfg, entry)
+            n_refs = min(poc, max(1, cfg.ref_frames))
+            fs = FrameState(num=frame_idx, poc=poc, qp=min(qp, 51),
+                            pictype=NalType.TRAIL,
+                            slicetype=SliceType.B if cfg.bipred
+                            else SliceType.P,
+                            ref_pocs_neg=tuple(
+                                1 + i for i in range(n_refs)))
+        if self.rc.enabled:
+            # sequential pipeline mode: state is current at stage D
+            gop_pos = None if fs.slicetype == SliceType.I \
+                else ((poc - 1) % cfg.gop_len) + 1 if cfg.gop_len else None
+            fs.qp, _lam = self.rc.pick_qp(fs, gop_pos)
+            fs.ctu_qps = self.rc.pick_ctu_qps(
+                fs, self.ctrl.width_in_lcu * self.ctrl.height_in_lcu)
+        token = None
+        if prefetch is None:
+            if not is_idr:
+                token = self.slice_enc.predispatch_intra_screen(fs, src)
+            elif self.slice_enc.open_loop and cfg.mts not in (1, 3):
+                prefetch = self.slice_enc.dispatch_frame_search(fs, src)
+        yield None
+        # --- stage M+R (previous frame finalized; dpb current) ---
+        if is_idr:
+            self.dpb = []
+            self.poc = 0
+            refs = []
+        else:
+            refs = list(self.dpb)
+        if prefetch is None and refs:
+            prefetch = self.slice_enc.dispatch_inter_search(
+                fs, src, refs, pretoken=token)
+        g = self.slice_enc.encode_frame_gen(fs, src, refs, prefetch=prefetch)
+        rec = next(g)
+        # reference rotation (uvg_encoder_prepare)
+        self.dpb.insert(0, rec)
+        del self.dpb[max(1, self.cfg.ref_frames):]
+        self.poc += 1
+        yield rec
+        au = next(g)
+        self.rc.update(fs, len(au) * 8,
+                       distortion=_rc_distortion(rec, src)
+                       if self.rc.enabled else None)
+        yield (au, rec, fs, refs, src)

@@ -1,0 +1,362 @@
+"""RD partition decision: bottom-up DP over the fixed QT lattice.
+
+The batched replacement of the reference's recursive depth search
+(search.c search_cu:1299 + work_tree copy-up): evaluate ALL CUs of every
+size in parallel (batched SATD mode search per size class), then pick the
+QT split structure with a cheap bottom-up argmin sweep — no sequential
+tree recursion, no work-tree copies.
+
+Cost model (ops.rd_cost batched forward path):
+  leaf(s)  = SSD(recon, src) + lambda * (fast_coeff_bits + mode_bits)
+  node(s)  = min(leaf(s), sum(children) + lambda * split_bits)
+Blocks crossing the frame boundary are forced to split (implicit QT,
+cu.c uvg_get_implicit_split).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..consts import LCU_WIDTH
+from .cu import NO_SPLIT, QT_SPLIT, CtuNode, split_locs
+
+INF = np.float64(1e30)
+
+# split-flag signaling estimate (bits); leaf costs come from the batched
+# RD model (SSD + lambda*bits), so the DP compares in the same units.
+# BT splits signal more bins (split + qt_split + mtt_vertical + mtt_binary)
+SPLIT_BITS_EST = 1.5
+BT_BITS_EST = 12.0
+TT_BITS_EST = 14.0
+
+
+
+def qp_to_lambda(qp: int) -> float:
+    """Frame lambda (rate_control.c uvg_qp_to_lambda:
+    0.57 * 2^((qp-12)/3)), the same for intra and inter frames."""
+    return 0.57 * 2.0 ** ((qp - 12) / 3.0)
+
+
+class PartitionSearch:
+    """Per-frame QT(+BT) partition decision from per-size cost grids."""
+
+    def __init__(self, ctrl, cfg, qp: int | None = None,
+                 is_intra: bool = True):
+        self.ctrl = ctrl
+        self.cfg = cfg
+        self.qp = qp if qp is not None else cfg.qp
+        self.is_intra = is_intra
+        # size classes searched, largest to smallest: always the full QT
+        # ladder 64..8. The reference's pu-depth-intra is a soft
+        # constraint — uvg266 streams at EVERY preset contain 64x64 intra
+        # leaves despite "pu-depth-intra 2-3" (verified by decoding its
+        # ultrafast output), so restricting the lattice to the flag range
+        # loses the large flat-area CUs (measured +25% I-frame bits).
+        # pu_depth_inter gates which classes get inter candidates
+        # (search.c:1370-1373 per-layer depth limits).
+        self.sizes = [LCU_WIDTH >> d for d in range(0, 4)]
+        # one level of binary splits (search.c MTT depth loop); children
+        # of 16x8-and-larger only so chroma TUs stay >= 4 samples wide,
+        # parents capped at 32 (SPS max BT size)
+        self.btt = cfg.max_btt_depth[0 if is_intra else 1] > 0
+        self.bt_parents = [s for s in self.sizes if 16 <= s <= 32] \
+            if self.btt else []
+        # TT only at 32: 1:2:1 children (32x8 + 32x16 + 32x8) keep the
+        # chroma quarter-child >= 4 samples; smaller parents would not
+        max_tt = cfg.max_tt_size[0 if is_intra else 1]
+        self.tt_parents = [s for s in self.bt_parents
+                           if s == 32 and s <= max_tt]
+
+    def _positions(self, s: int, w: int | None = None,
+                   h: int | None = None):
+        """Grid positions of fully-inside w x h blocks (defaults s x s)."""
+        w = w if w is not None else s
+        h = h if h is not None else s
+        fw, fh = self.ctrl.in_width, self.ctrl.in_height
+        gw, gh = -(-fw // w), -(-fh // h)
+        positions = []
+        for by in range(gh):
+            for bx in range(gw):
+                x, y = bx * w, by * h
+                if x + w <= fw and y + h <= fh:
+                    positions.append((x, y))
+        return positions, gw, gh
+
+    def _shapes(self):
+        """All (w, h) block shapes to search: squares + BT children +
+        TT outer children (the quarter-size strips live on the regular
+        grid; only the TT middle child needs an offset grid)."""
+        shapes = [(s, s) for s in self.sizes]
+        for s in self.bt_parents:
+            shapes.append((s, s >> 1))      # BT_HOR children
+            shapes.append((s >> 1, s))      # BT_VER children
+        for s in self.tt_parents:
+            shapes.append((s, s >> 2))      # TT_HOR outer children
+            shapes.append((s >> 2, s))      # TT_VER outer children
+        return shapes
+
+    def _tt_mid_positions(self, s: int, vertical: bool):
+        """Middle-child (x, y) of a TT split for every fully-inside
+        parent square: offset s/4 into the parent, size s/2 x s."""
+        fw, fh = self.ctrl.in_width, self.ctrl.in_height
+        positions = []
+        for by in range(fh // s):
+            for bx in range(fw // s):
+                x, y = bx * s, by * s
+                positions.append((x + (s >> 2), y) if vertical
+                                 else (x, y + (s >> 2)))
+        return positions
+
+    def search(self, src_y: np.ndarray, search_fn) -> list[CtuNode]:
+        """search_fn(w, h, positions) -> (modes, costs) for aligned blocks.
+
+        positions: list of (x, y). Returns the chosen CTU trees with
+        leaf.cu_mode set.
+        """
+        cost = {}
+        mode = {}
+        for (w, h) in self._shapes():
+            positions, gw, gh = self._positions(max(w, h), w, h)
+            descs, costs_arr = search_fn(w, h, positions)
+            c = np.full((gh, gw), INF)
+            m = {}
+            for k, (x, y) in enumerate(positions):
+                c[y // h, x // w] = costs_arr[k]
+                m[(x, y)] = descs[k]
+            cost[(w, h)] = c
+            mode[(w, h)] = m
+        for s in self.tt_parents:
+            for vert in (False, True):
+                w, h = ((s >> 1), s) if vert else (s, (s >> 1))
+                positions = self._tt_mid_positions(s, vert)
+                if not positions:
+                    continue
+                descs, costs_arr = search_fn(w, h, positions)
+                self._store_tt(cost, mode, s, vert, positions,
+                               descs, costs_arr)
+        return self._decide(cost, mode)
+
+    def _store_tt(self, cost, mode, s, vert, positions, descs, costs_arr):
+        gh = -(-self.ctrl.in_height // s)
+        gw = -(-self.ctrl.in_width // s)
+        key = ("ttv" if vert else "tth", s)
+        c = np.full((gh, gw), INF)
+        m = {}
+        for k, (x, y) in enumerate(positions):
+            px, py = (x - (s >> 2), y) if vert else (x, y - (s >> 2))
+            c[py // s, px // s] = costs_arr[k]
+            m[(x, y)] = descs[k]
+        cost[key] = c
+        mode[key] = m
+
+    def search_async(self, src_y: np.ndarray, dispatch_fn) -> list[CtuNode]:
+        """Like search(), but dispatch_fn(w, h, positions) returns a
+        resolve() thunk: all size classes are dispatched to the device
+        back-to-back before any result is awaited (JAX async dispatch),
+        removing the per-size host sync bubbles."""
+        pend = []
+        for (w, h) in self._shapes():
+            positions, gw, gh = self._positions(max(w, h), w, h)
+            pend.append((w, h, positions, gw, gh,
+                         dispatch_fn(w, h, positions)))
+        tt_pend = []
+        for s in self.tt_parents:
+            for vert in (False, True):
+                w, h = ((s >> 1), s) if vert else (s, (s >> 1))
+                positions = self._tt_mid_positions(s, vert)
+                if positions:
+                    tt_pend.append((s, vert, positions,
+                                    dispatch_fn(w, h, positions)))
+        from .encoder import _fetch_all
+        rsv = [r for (*_ign, r) in pend] + [r for (*_ign, r) in tt_pend]
+        pres_all = _fetch_all(rsv)
+        pres = pres_all[:len(pend)]
+        tt_pres = pres_all[len(pend):]
+        cost = {}
+        mode = {}
+        for (w, h, positions, gw, gh, resolve), pre in zip(pend, pres):
+            descs, costs_arr = resolve(pre=pre) if pre is not None \
+                else resolve()
+            c = np.full((gh, gw), INF)
+            m = {}
+            for k, (x, y) in enumerate(positions):
+                c[y // h, x // w] = costs_arr[k]
+                m[(x, y)] = descs[k]
+            cost[(w, h)] = c
+            mode[(w, h)] = m
+        for (s, vert, positions, resolve), pre in zip(tt_pend, tt_pres):
+            descs, costs_arr = resolve(pre=pre) if pre is not None \
+                else resolve()
+            self._store_tt(cost, mode, s, vert, positions,
+                           descs, costs_arr)
+        return self._decide(cost, mode)
+
+    def dp_choice(self, cost) -> dict:
+        """The bottom-up DP sweep of _decide, returning the per-size
+        choice grids (0 leaf, 1 QT, 2/3 BT, 4/5 TT) without building
+        trees."""
+        return self._dp(cost)[0]
+
+    def flat_square_leaves(self, choice):
+        """Vectorized leaf extraction for square-only lattices (BTT
+        off): returns (xs, ys, ss) int32 arrays in coding order (CTU
+        raster, Morton z-order within the CTU) without constructing any
+        CtuNode objects — the no-object fast path the native finalize
+        consumes directly."""
+        ctrl = self.ctrl
+        W, H = ctrl.in_width, ctrl.in_height
+        wl = ctrl.width_in_lcu
+        out_x, out_y, out_s = [], [], []
+        reached = np.ones((ctrl.height_in_lcu, ctrl.width_in_lcu),
+                          dtype=bool)
+        smallest = self.sizes[-1]
+        for s in self.sizes:
+            gh, gw = reached.shape
+            ys, xs = np.ogrid[0:gh, 0:gw]
+            valid = (xs * s < W) & (ys * s < H)
+            crosses = ((xs + 1) * s > W) | ((ys + 1) * s > H)
+            if s == smallest:
+                leaf = reached & valid
+            else:
+                ch = choice[s][:gh, :gw]
+                leaf = reached & valid & ~crosses & (ch == 0)
+                split = reached & valid & (crosses | (ch != 0))
+            yy, xx = np.nonzero(leaf)
+            out_x.append((xx * s).astype(np.int64))
+            out_y.append((yy * s).astype(np.int64))
+            out_s.append(np.full(len(xx), s, dtype=np.int64))
+            if s == smallest:
+                break
+            reached = np.repeat(np.repeat(split, 2, 0), 2, 1)
+            cgh = -(-H // (s >> 1))
+            cgw = -(-W // (s >> 1))
+            reached = reached[:cgh, :cgw]
+        xs = np.concatenate(out_x)
+        ys = np.concatenate(out_y)
+        ss = np.concatenate(out_s)
+        # coding order: CTU raster then Morton (y bit above x bit — the
+        # QT child order TL, TR, BL, BR)
+        part3 = np.array([0, 1, 4, 5, 16, 17, 20, 21], dtype=np.int64)
+        bx = (xs % LCU_WIDTH) // 8
+        by = (ys % LCU_WIDTH) // 8
+        key = ((ys // LCU_WIDTH) * wl + xs // LCU_WIDTH) * 64 \
+            + part3[bx] + 2 * part3[by]
+        order = np.argsort(key, kind="stable")
+        return (xs[order].astype(np.int32), ys[order].astype(np.int32),
+                ss[order].astype(np.int32))
+
+    def _dp(self, cost):
+        lam = qp_to_lambda(self.qp)
+        # bottom-up DP over the size pyramid; at each square size the
+        # choice is leaf / QT(4 sub-squares) / BT_HOR / BT_VER (one MTT
+        # level: BT children are leaves)
+        smallest = self.sizes[-1]
+        total = {smallest: cost[(smallest, smallest)]}
+        choice = {}     # s -> int grid: 0 leaf, 1 QT, 2 BT_HOR, 3 BT_VER
+        for si, s in enumerate(self.sizes[::-1]):
+            if s == smallest and s not in self.bt_parents:
+                continue
+            sq = cost[(s, s)]
+            gh, gw = sq.shape
+            cands = [sq]
+            if s != smallest:
+                child = total[self.sizes[self.sizes.index(s) + 1]]
+                ch = child[:gh * 2, :gw * 2]
+                pad_h = gh * 2 - ch.shape[0]
+                pad_w = gw * 2 - ch.shape[1]
+                if pad_h or pad_w:
+                    ch = np.pad(ch, ((0, pad_h), (0, pad_w)),
+                                constant_values=0)
+                sum4 = (ch[0::2, 0::2] + ch[0::2, 1::2]
+                        + ch[1::2, 0::2] + ch[1::2, 1::2])
+                cands.append(sum4 + lam * SPLIT_BITS_EST)
+            else:
+                cands.append(np.full_like(sq, INF))
+            if s in self.bt_parents:
+                cbh = cost[(s, s >> 1)]
+                hh = cbh[:gh * 2, :gw]
+                if hh.shape[0] < gh * 2:
+                    hh = np.pad(hh, ((0, gh * 2 - hh.shape[0]), (0, 0)),
+                                constant_values=INF)
+                cands.append(hh[0::2] + hh[1::2] + lam * BT_BITS_EST)
+                cbv = cost[(s >> 1, s)]
+                vv = cbv[:gh, :gw * 2]
+                if vv.shape[1] < gw * 2:
+                    vv = np.pad(vv, ((0, 0), (0, gw * 2 - vv.shape[1])),
+                                constant_values=INF)
+                cands.append(vv[:, 0::2] + vv[:, 1::2]
+                             + lam * BT_BITS_EST)
+            else:
+                cands.append(np.full_like(sq, INF))
+                cands.append(np.full_like(sq, INF))
+            if s in self.tt_parents:
+                # TT_HOR: s x s/4 outer strips (regular grid, y step s/4)
+                # + the offset-grid s x s/2 middle strip
+                cq = cost[(s, s >> 2)]
+                qq = cq[:gh * 4, :gw]
+                if qq.shape[0] < gh * 4:
+                    qq = np.pad(qq, ((0, gh * 4 - qq.shape[0]), (0, 0)),
+                                constant_values=INF)
+                cands.append(qq[0::4] + cost[("tth", s)] + qq[3::4]
+                             + lam * TT_BITS_EST)
+                cq = cost[(s >> 2, s)]
+                qq = cq[:gh, :gw * 4]
+                if qq.shape[1] < gw * 4:
+                    qq = np.pad(qq, ((0, 0), (0, gw * 4 - qq.shape[1])),
+                                constant_values=INF)
+                cands.append(qq[:, 0::4] + cost[("ttv", s)] + qq[:, 3::4]
+                             + lam * TT_BITS_EST)
+            stacked = np.stack(cands)
+            choice[s] = stacked.argmin(axis=0)
+            total[s] = stacked.min(axis=0)
+        return choice, total
+
+    def _decide(self, cost, mode) -> list[CtuNode]:
+        ctrl = self.ctrl
+        choice, _total = self._dp(cost)
+        # build CTU trees
+        ctus = []
+        for cty in range(ctrl.height_in_lcu):
+            for ctx_ in range(ctrl.width_in_lcu):
+                ctus.append(self._build(ctx_ * LCU_WIDTH, cty * LCU_WIDTH,
+                                        LCU_WIDTH, choice, mode))
+        return ctus
+
+    def _build(self, x, y, s, choice, mode) -> CtuNode:
+        from .cu import BT_HOR_SPLIT, BT_VER_SPLIT
+        ctrl = self.ctrl
+        node = CtuNode(x, y, s, s)
+        crosses = x + s > ctrl.in_width or y + s > ctrl.in_height
+        must_split = s > self.sizes[0] or crosses
+        ch = 0
+        if not must_split and s in choice:
+            ch = int(choice[s][y // s, x // s])
+        elif must_split:
+            ch = 1
+        if ch == 1 and s > 8:
+            node.split = QT_SPLIT
+            for (sx, sy, sw, sh) in split_locs(x, y, s, s, QT_SPLIT):
+                if sx >= ctrl.in_width or sy >= ctrl.in_height:
+                    continue
+                node.children.append(self._build(sx, sy, sw, choice, mode))
+        elif ch in (2, 3):
+            split = BT_HOR_SPLIT if ch == 2 else BT_VER_SPLIT
+            node.split = split
+            for (sx, sy, sw, sh) in split_locs(x, y, s, s, split):
+                leaf = CtuNode(sx, sy, sw, sh)
+                leaf.cu_desc = mode[(sw, sh)][(sx, sy)]
+                node.children.append(leaf)
+        elif ch in (4, 5):
+            from .cu import TT_HOR_SPLIT, TT_VER_SPLIT
+            split = TT_HOR_SPLIT if ch == 4 else TT_VER_SPLIT
+            node.split = split
+            mid_key = ("tth" if ch == 4 else "ttv", s)
+            for i, (sx, sy, sw, sh) in enumerate(
+                    split_locs(x, y, s, s, split)):
+                leaf = CtuNode(sx, sy, sw, sh)
+                src_m = mode[mid_key] if i == 1 else mode[(sw, sh)]
+                leaf.cu_desc = src_m[(sx, sy)]
+                node.children.append(leaf)
+        else:
+            node.split = NO_SPLIT
+            node.cu_desc = mode[(s, s)][(x, y)]
+        return node
